@@ -1,0 +1,145 @@
+"""Parity of the port's numpy host layer and scene compiler with the JAX
+package: the zoo builders, PPM/OFF I/O, `compile_scene` field by field
+(exact), and carrying a JAX DeviceScene across with
+`device_scene_from_numpy`."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from tracer.io import off as joff
+from tracer.io import ppm as jppm
+from tracer.scene.device import compile_scene as jcompile
+from tracer.scenes import zoo as jzoo
+from tracer_torch.io import off as toff
+from tracer_torch.io import ppm as tppm
+from tracer_torch.scene import builder as tbuilder
+from tracer_torch.scene import device as tdevice
+from tracer_torch.scenes import zoo as tzoo
+from tracer_torch.testing import fill_cornell_textures
+
+META = tdevice._META
+
+
+def _builder_arrays(sb):
+    """Every array and value a SceneBuilder holds, in a comparable form."""
+    def mat(m):
+        return {k: np.asarray(v) for k, v in vars(m).items()}
+
+    out = dict(dark_sky=sb.dark_sky, skybox=sb.skybox,
+               textures=list(sb.textures), normal_maps=list(sb.normal_maps))
+    out["spheres"] = [(s.center, s.radius, mat(s.material))
+                      for s in sb.spheres]
+    out["squares"] = [(q.verts, q.tangent, q.bitangent, q.normal_member,
+                       mat(q.material)) for q in sb.squares]
+    out["meshes"] = [(m.verts, m.tris, m.vert_colors, m.face_colors,
+                      mat(m.material)) for m in sb.meshes]
+    out["lights"] = [(l.pos, l.radius, l.color, l.power_correction)
+                     for l in sb.lights]
+    return out
+
+
+def _assert_same(a, b, path="sb"):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    elif a is None or b is None:
+        assert a is None and b is None, path
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+@pytest.mark.parametrize("name", sorted(jzoo.BY_NAME))
+def test_zoo_builders_match(name):
+    _assert_same(_builder_arrays(jzoo.BY_NAME[name]()),
+                 _builder_arrays(tzoo.BY_NAME[name]()))
+
+
+def _scenes():
+    return {
+        "cornell_box": lambda z: z.setup_cornell_box(850 / 480),
+        "cornell_textured": lambda z: fill_cornell_textures(
+            z.setup_cornell_box(850 / 480)),
+        "single_sphere": lambda z: z.setup_single_sphere(),
+    }
+
+
+def _assert_scene_equal(js, ts):
+    for f in dataclasses.fields(js):
+        a, b = getattr(js, f.name), getattr(ts, f.name)
+        if f.name in META:
+            assert a == b, f.name
+            continue
+        a, b = np.asarray(a), b.cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+@pytest.mark.parametrize("name", sorted(_scenes()))
+def test_compile_scene_matches_jax(name):
+    make = _scenes()[name]
+    js = jcompile(make(jzoo))
+    ts = tdevice.compile_scene(make(tzoo))
+    assert [f.name for f in dataclasses.fields(js)] == \
+        [f.name for f in dataclasses.fields(ts)]
+    _assert_scene_equal(js, ts)
+    if name == "cornell_textured":
+        # both pair-region kinds: matched dims (plain) and a product region
+        assert ts.pair_mode
+        assert int(ts.mat_pair_wb.max()) > 0
+        assert int((ts.mat_pair_wa * (ts.mat_pair_wb == 0)).max()) > 0
+
+
+def test_device_scene_from_numpy_round_trip():
+    js = jcompile(fill_cornell_textures(jzoo.setup_cornell_box()))
+    fields = {f.name: np.asarray(getattr(js, f.name))
+              for f in dataclasses.fields(js) if f.name not in META}
+    meta = {k: getattr(js, k) for k in META}
+    ts = tdevice.device_scene_from_numpy(fields, meta)
+    _assert_scene_equal(js, ts)
+    back = tdevice.device_scene_from_numpy(
+        {k: getattr(ts, k).numpy() for k in fields},
+        {k: getattr(ts, k) for k in META})
+    _assert_scene_equal(js, back)
+
+
+def test_meshes_are_not_ported_yet():
+    sb = tbuilder.SceneBuilder()
+    sb.add_mesh(tbuilder.MeshObject(
+        np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32)))
+    with pytest.raises(NotImplementedError, match="Mesh scenes"):
+        tdevice.compile_scene(sb)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_ppm_io_matches(tmp_path, binary):
+    rs = np.random.RandomState(4)
+    img = rs.rand(7, 5, 3).astype(np.float32)
+    p1, p2 = str(tmp_path / "a.ppm"), str(tmp_path / "b.ppm")
+    jppm.write_ppm(p1, img, binary=binary)
+    tppm.write_ppm(p2, img, binary=binary)
+    assert open(p1, "rb").read() == open(p2, "rb").read()
+    np.testing.assert_array_equal(jppm.load_ppm(p1), tppm.load_ppm(p1))
+    assert tppm.load_ppm(str(tmp_path / "missing.ppm")) is None
+    q1, q2 = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    jppm.write_png(q1, img)
+    tppm.write_png(q2, img)
+    assert open(q1, "rb").read() == open(q2, "rb").read()
+
+
+def test_off_io_matches(tmp_path):
+    path = tmp_path / "m.off"
+    path.write_text("COFF\n# comment\n4 2 0\n"
+                    "0 0 0 255 0 0 255\n1 0 0 0 255 0 255\n"
+                    "0 1 0 0 0 255 255\n1 1 0 9 9 9 255\n"
+                    "3 0 1 2 10 20 30\n3 1 3 2 40 50 60\n")
+    for a, b in zip(joff.load_off(str(path)), toff.load_off(str(path))):
+        _assert_same(a, b)

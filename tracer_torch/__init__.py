@@ -1,0 +1,19 @@
+"""tracer_torch — the PyTorch and CUDA port of `tracer` for an NVIDIA H100.
+
+The JAX package `tracer` is the reference; this package imports torch and
+numpy only, never `jax` or `tracer`, so it runs where JAX is absent. It
+keeps its own copy of the numpy host layer (scene builder, zoo, image and
+mesh I/O, RenderConfig) because importing anything under `tracer` imports
+JAX. Layout and names mirror `tracer/`: each module sits at the same path.
+
+The forward Cornell render runs on two hand-written CUDA kernels
+(`kernels/csrc/first_hits.cu`, `kernels/csrc/shade_scatter.cu`); on CPU
+tensors each kernel's plain PyTorch version runs instead.
+"""
+
+from tracer_torch.core.config import RenderConfig
+from tracer_torch.render.renderer import render, render_image
+from tracer_torch.scenes import zoo
+
+__all__ = ["RenderConfig", "render", "render_image", "zoo"]
+__version__ = "0.1.0"

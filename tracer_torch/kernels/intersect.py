@@ -1,0 +1,273 @@
+"""First-hit kernel: the sphere+quad candidate pass, the closest-hit argmin
+and the winner's hit detail in one pass over the rays.
+
+Replaces the TPU kernel `tracer/kernels/intersect.py::first_hits` (Pallas,
+`pl.pallas_call` at intersect.py:433) with the CUDA kernel
+`csrc/first_hits.cu`, one thread per ray. Its plain PyTorch version,
+`first_hits_plain`, follows the same expressions in the same order and is
+what the wrapper runs for CPU tensors.
+
+What bounds it on an H100: per ray it reads about 32 B (o, d, time, live)
+and writes 84 B (21 planar outputs); the scene tables (Cornell: 8x9 +
+16x47 floats) sit in shared memory, and the candidate loop is ~30 flops per
+primitive. So it is bound by memory traffic and launch latency, far below
+the card's compute bound. The design keeps every per-ray intermediate in
+registers, reads the winner's table row once after the loop instead of
+carrying a winner cache through it, and writes each output once.
+
+Semantics (mirrored from the TPU kernel):
+- selection is strict-< in (spheres, quads) order over the REAL rows;
+- a sphere winner's quad fields read as zero, so its u = v = 0 and
+  tan = bitan = 0, exactly as the TPU kernel's zeroed cache leaves them;
+- `tex_out=1` adds the pair-atlas texel index (row, sub) and the per-lane
+  atlas-validity masks (ptex, pnm) for quad winners;
+- lanes with `live` false get the defaults: j = tid = -1, n = (0, 0, 1),
+  everything else 0.
+Meshes (the per-mesh BVH hits merged after the eps cut) come with the
+traversal kernel; until then `tid` is always -1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tracer_torch.geometry import primitives as prim
+from tracer_torch.kernels import common as kc
+
+GLASS = 1
+LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
+
+# output layout of the kernel: int32 [5, N] and float32 [16, N]
+I_FIELDS = ("j", "tid", "mid", "row", "sub")
+F_FIELDS = ("px", "py", "pz", "nx", "ny", "nz", "u", "v",
+            "tx", "ty", "tz", "bx", "by", "bz", "ptex", "pnm")
+
+
+def intersect_tables(scene):
+    """Scene tables with the same columns as the TPU kernel's SMEM tables.
+
+    sph [S, 9]:  0:3 c, 3 r, 4:7 mb, 7 valid, 8 midf
+    quad [Q, 47]: 0:3 v0, 3:6 er, 6:9 eu, 9:12 n(stored), 12:15 mb,
+       15 v0_n, 16 mb_n, 17 v0_er, 18 mb_er, 19 v0_eu, 20 mb_eu,
+       21 er2, 22 eu2, 23 glass, 24 valid, 25 midf, 26:29 tan,
+       29:32 bitan, 32 sx, 33 sy, 34 pair_wa, 35 pair_ha, 36 pair_wb,
+       37 pair_hb, 38 pair_off, 39 pair_tex, 40 pair_nm, 41 tex_off,
+       42 tex_w, 43 tex_h, 44 nm_off, 45 nm_w, 46 nm_h
+    (The TPU kernel's docstring says [Q, 41]; its table has 47 columns.)
+    """
+    def f(a):
+        return a.to(torch.float32)[:, None]
+
+    def dot(a, b):
+        return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]
+                + a[:, 2] * b[:, 2])[:, None]
+
+    sph = torch.cat([
+        scene.sph_center, scene.sph_radius[:, None],
+        scene.mat_mb[scene.sph_mat], scene.sph_valid[:, None],
+        f(scene.sph_mat)], dim=1)
+    n, er, eu = scene.quad_normal, scene.quad_er, scene.quad_eu
+    v0 = scene.quad_v0
+    qm = scene.quad_mat
+    mbq = scene.mat_mb[qm]
+    tex, nm = scene.mat_tex[qm], scene.mat_nm[qm]
+    quad = torch.cat([
+        v0, er, eu, n, mbq,
+        dot(v0, n), dot(mbq, n), dot(v0, er), dot(mbq, er), dot(v0, eu),
+        dot(mbq, eu), dot(er, er), dot(eu, eu),
+        f(scene.mat_type[qm] == GLASS), scene.quad_valid[:, None], f(qm),
+        scene.quad_tan, scene.quad_bitan, scene.mat_texscale[qm],
+        f(scene.mat_pair_wa[qm]), f(scene.mat_pair_ha[qm]),
+        f(scene.mat_pair_wb[qm]), f(scene.mat_pair_hb[qm]),
+        f(scene.mat_pair_off[qm]),
+        f(scene.mat_pair_tex[qm]), f(scene.mat_pair_nm[qm]),
+        f(scene.tex_off[tex]), f(scene.tex_w[tex]), f(scene.tex_h[tex]),
+        f(scene.nm_off[nm]), f(scene.nm_w[nm]), f(scene.nm_h[nm])], dim=1)
+    return sph.contiguous(), quad.contiguous()
+
+
+def _check_scene(scene):
+    if scene.mesh_mat.shape[0] > 0:
+        raise NotImplementedError(
+            "first_hits: mesh candidates need the traversal kernel "
+            "(ROADMAP.md Queue A, 'Mesh scenes')")
+
+
+def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
+               kernels="auto", tables=None):
+    """Closest hit + winner detail for planar rays.
+
+    o, d: planar (x, y, z) of [N] f32; time [N] f32; live [N] bool.
+    Returns dict(j [-1 = miss], tid, mid, row, sub (int32), p, n, tan,
+    bitan (planar f32), u, v, ptex, pnm (f32)). `tables`: a precomputed
+    `intersect_tables(scene)`."""
+    _check_scene(scene)
+    if tex_out not in (0, 1):
+        raise NotImplementedError(
+            "first_hits: tex_out=2 (true atlas indices for the record "
+            "path) is not ported yet (ROADMAP.md Queue A, "
+            "'Main-path backward')")
+    if tables is None:
+        tables = intersect_tables(scene)
+    if kc.use_kernel(kernels, o[0]):
+        return _first_hits_cuda(scene, o, d, time, live, eps, tex_out,
+                                tables)
+    return first_hits_plain(scene, o, d, time, live, eps, tex_out, tables)
+
+
+def _unpack(out_i, out_f):
+    i = dict(zip(I_FIELDS, out_i))
+    f = dict(zip(F_FIELDS, out_f))
+    return dict(j=i["j"], tid=i["tid"], mid=i["mid"], row=i["row"],
+                sub=i["sub"], p=(f["px"], f["py"], f["pz"]),
+                n=(f["nx"], f["ny"], f["nz"]), u=f["u"], v=f["v"],
+                tan=(f["tx"], f["ty"], f["tz"]),
+                bitan=(f["bx"], f["by"], f["bz"]),
+                ptex=f["ptex"], pnm=f["pnm"])
+
+
+def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
+    """The plain PyTorch version of the kernel (same expressions, same
+    order; a Python loop over the table rows)."""
+    sph, quad = tables
+    S, Q = sph.shape[0], quad.shape[0]
+    tm = time
+    N = o[0].shape[0]
+    dev = o[0].device
+    a2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    best = torch.full((N,), prim.INF, dtype=torch.float32, device=dev)
+    j = torch.full((N,), -1, dtype=torch.int32, device=dev)
+
+    for s in range(min(scene.n_sph_real, S)):
+        r = sph[s]
+        t, ok = prim.sphere_t(o, d, a2, tm, (r[0], r[1], r[2]), r[3],
+                              (r[4], r[5], r[6]), r[7], eps)
+        upd = ok & (t < best)
+        best = torch.where(upd, t, best)
+        j = torch.where(upd, s, j)
+    for q in range(min(scene.n_quad_real, Q)):
+        t, ok = prim.quad_t(o, d, tm, quad[q], eps)
+        upd = ok & (t < best)
+        best = torch.where(upd, t, best)
+        j = torch.where(upd, S + q, j)
+
+    # ---- the winner's row, as the TPU kernel's cache holds it ----------
+    is_s = (j >= 0) & (j < S)
+    is_q = (j >= S) & (j < S + Q)
+    srow = sph[torch.clamp(j, 0, S - 1).long()]
+    qrow = quad[torch.clamp(j - S, 0, Q - 1).long()]
+
+    def both(sc, qc):   # slot filled by sphere AND quad winners
+        return torch.where(is_q, qrow[:, qc],
+                           torch.where(is_s, srow[:, sc], 0.0))
+
+    def quad_only(qc):  # sphere winners leave the slot at zero
+        return torch.where(is_q, qrow[:, qc], 0.0)
+
+    c0, c1, c2 = both(0, 0), both(1, 1), both(2, 2)
+    c3 = torch.where(is_s, srow[:, 3], 0.0)
+    c4, c5, c6 = both(4, 12), both(5, 13), both(6, 14)
+    ex, ey, ez = quad_only(3), quad_only(4), quad_only(5)
+    ux, uy, uz = quad_only(6), quad_only(7), quad_only(8)
+    midf = both(8, 25)
+
+    v0, mb = (c0, c1, c2), (c4, c5, c6)
+    ps, ns = prim.sphere_hit_detail(o, d, a2, tm, v0, c3, mb)
+    pq, nq, uq, vq = prim.quad_hit_detail(o, d, tm, v0, (ex, ey, ez),
+                                          (ux, uy, uz), mb)
+
+    miss = best >= prim.INF * 0.5
+    zi = torch.zeros_like(j)
+    zf = torch.zeros_like(tm)
+    out = dict(
+        j=torch.where(miss, -1, j), tid=torch.full_like(j, -1),
+        mid=midf.to(torch.int32), row=zi, sub=zi,
+        p=tuple(torch.where(is_q, a, b) for a, b in zip(pq, ps)),
+        n=tuple(torch.where(is_q, a, b) for a, b in zip(nq, ns)),
+        u=uq, v=vq,
+        tan=(quad_only(26), quad_only(27), quad_only(28)),
+        bitan=(quad_only(29), quad_only(30), quad_only(31)),
+        ptex=zf, pnm=zf)
+    if tex_out:
+        # pair-atlas texel index: xa/ya from the primary dims, xb/yb the
+        # product-region staircase; rel = (ya+yb)*wc + xa+xb
+        from tracer_torch.render.shading import texel_xy
+        sx, sy = quad_only(32), quad_only(33)
+        wa, ha = quad_only(34), quad_only(35)
+        wb, hb = quad_only(36), quad_only(37)
+        xa, ya = texel_xy(wa, ha, uq, vq, sx, sy)
+        xb, yb = texel_xy(wb, hb, uq, vq, sx, sy)
+        wc = wa.to(torch.int32) + torch.clamp_min(wb.to(torch.int32) - 1, 0)
+        rel = (ya + yb) * wc + xa + xb
+        out.update(
+            row=torch.where(is_q, quad_only(38).to(torch.int32) + (rel >> 4),
+                            zi),
+            sub=torch.where(is_q, rel & 15, zi),
+            ptex=quad_only(39), pnm=quad_only(40))
+
+    # defaults on lanes that are not live
+    def dflt(x, v):
+        return torch.where(live, x, v)
+
+    res = {}
+    for k, v in out.items():
+        if k in ("j", "tid"):
+            res[k] = dflt(v, -1)
+        elif k == "n":
+            res[k] = (dflt(v[0], 0.0), dflt(v[1], 0.0), dflt(v[2], 1.0))
+        elif isinstance(v, tuple):
+            res[k] = tuple(dflt(c, 0.0) for c in v)
+        elif v.dtype == torch.int32:
+            res[k] = dflt(v, 0)
+        else:
+            res[k] = dflt(v, 0.0)
+    return res
+
+
+class _Args(ctypes.Structure):
+    """Mirror of `FirstHitsArgs` in csrc/first_hits.cu (same order)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "ox", "oy", "oz", "dx", "dy", "dz", "tm", "live", "sph", "quad",
+        "out_i", "out_f")] + [
+        ("n", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
+        ("Q", ctypes.c_int), ("Q_real", ctypes.c_int),
+        ("tex_out", ctypes.c_int), ("eps", ctypes.c_float)]
+
+
+_MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
+
+
+def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables):
+    from tracer_torch.kernels import _build
+    global LAUNCHES
+    sph, quad = tables
+    dev = o[0].device
+    N = o[0].shape[0]
+    S, Q = sph.shape[0], quad.shape[0]
+    S_real, Q_real = min(scene.n_sph_real, S), min(scene.n_quad_real, Q)
+    if (S_real * 9 + Q_real * 47) * 4 > _MAX_SMEM:
+        raise ValueError("first_hits: scene tables exceed the kernel's "
+                         f"{_MAX_SMEM} B of shared memory")
+    f32, i32 = torch.float32, torch.int32
+    out_i = torch.empty((len(I_FIELDS), N), dtype=i32, device=dev)
+    out_f = torch.empty((len(F_FIELDS), N), dtype=f32, device=dev)
+    a = _Args()
+    for name, t in zip(("ox", "oy", "oz"), o):
+        setattr(a, name, kc.check(name, t, f32, (N,), dev))
+    for name, t in zip(("dx", "dy", "dz"), d):
+        setattr(a, name, kc.check(name, t, f32, (N,), dev))
+    a.tm = kc.check("time", time, f32, (N,), dev)
+    a.live = kc.check("live", live, torch.bool, (N,), dev)
+    a.sph = kc.check("sph", sph, f32, (S, 9), dev)
+    a.quad = kc.check("quad", quad, f32, (Q, 47), dev)
+    a.out_i, a.out_f = out_i.data_ptr(), out_f.data_ptr()
+    a.n, a.S, a.S_real, a.Q, a.Q_real = N, S, S_real, Q, Q_real
+    a.tex_out, a.eps = int(tex_out), float(eps)
+    if N > 0:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.library().tt_first_hits(ctypes.addressof(a), stream)
+        kc.raise_on_error("first_hits", err)
+        LAUNCHES += 1
+    return _unpack(out_i, out_f)

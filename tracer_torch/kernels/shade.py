@@ -1,0 +1,300 @@
+"""Shade+scatter kernel: everything a bounce does after the first hit —
+sky on miss, material and texel fetch, checker/image/emission select,
+normal mapping, direct light from given shadow factors, BSDF scatter on
+the PCG streams, and the wavefront state update — in one pass.
+
+Replaces the TPU kernel `tracer/kernels/shade.py::shade_scatter` (Pallas,
+`pl.pallas_call` at shade.py:473) with the CUDA kernel
+`csrc/shade_scatter.cu`, one thread per ray. The material row and the
+pair-atlas texel words are fetched inside the kernel by (mid) and
+(row, sub); the TPU path did both in XLA (`integrator._rows` and the
+pair-row gather with its one-hot select). `shade_scatter_plain` is the
+plain PyTorch version with the same expressions in the same order.
+
+What bounds it on an H100: per ray about 190 B of state, hit record,
+material row and texel words in and out, a few dozen flops and ~10 hash
+rounds. Memory traffic and launch latency bound it, far below the
+compute bound; the design reads each input once, keeps the whole chain in
+registers and writes each output once.
+
+Lanes that are not active pass their state through; `last=True` (the
+final bounce) writes only the radiance accumulator.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tracer_torch.core import rng
+from tracer_torch.core import vec3p as vp
+from tracer_torch.kernels import common as kc
+from tracer_torch.render import shading
+
+DIFFUSE, GLASS, MIRROR = 0, 1, 2
+MAT_COLS = 20
+LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
+
+
+def shade_mat_table(scene):
+    """[M, 20] f32 material table: 0:3 diffuse, 3:6 check1, 6:9 check2,
+    9:12 light_color, 12 k_emit (light_intensity * emissive), 13 transp,
+    14 ior, 15 mtypef, 16 textypef, 17 use_nm (mat_nm > 0), 18 sx, 19 sy."""
+    def f(a):
+        return a.to(torch.float32)[:, None]
+
+    return torch.cat([
+        scene.mat_diffuse, scene.mat_check1, scene.mat_check2,
+        scene.mat_light_color,
+        (scene.mat_light_intensity * scene.mat_emissive)[:, None],
+        scene.mat_transparency[:, None], scene.mat_ior[:, None],
+        f(scene.mat_type), f(scene.mat_textype), f(scene.mat_nm > 0),
+        scene.mat_texscale], dim=1).contiguous()
+
+
+def _light_table(scene):
+    """[max(L, 1), 6] f32: light position and color."""
+    if scene.light_pos.shape[0] > 0:
+        return torch.cat([scene.light_pos, scene.light_color],
+                         dim=1).contiguous()
+    return torch.zeros((1, 6), dtype=torch.float32, device=scene.device)
+
+
+def shade_tables(scene):
+    """(material table, light table, dark_sky as a host float): what the
+    shade pass reads besides the rays. Build it once per frame."""
+    return shade_mat_table(scene), _light_table(scene), \
+        float(scene.dark_sky)
+
+
+def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
+                  use_pair=False, last=False, kernels="auto", tables=None):
+    """One bounce's shading and scatter over planar ray state.
+
+    state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
+    `active` bool [N]. bkeys: this bounce's keys (int64 holding uint32).
+    k1: the `first_hits` record (j, mid, p, n, u, v, tan, bitan and, with
+    `use_pair`, row, sub, ptex, pnm). shadows: [L, N] f32 soft-shadow
+    factors, or None when the scene has no lights. Returns the next state
+    dict, or only acc (planar) when `last`."""
+    if scene.mesh_mat.shape[0] > 0:
+        raise NotImplementedError(
+            "shade_scatter: mesh hit detail is not ported yet "
+            "(ROADMAP.md Queue A, 'Mesh scenes')")
+    if scene.has_sky_image:
+        raise NotImplementedError(
+            "shade_scatter: the image skybox is not ported yet "
+            "(ROADMAP.md Queue A, 'Sky image, sphere UV and exact atlas')")
+    if tables is None:
+        tables = shade_tables(scene)
+    L = scene.light_pos.shape[0]
+    N = state["d"][0].shape[0]
+    if L > 0:
+        if isinstance(shadows, (list, tuple)):
+            shadows = torch.stack(list(shadows))
+        shadows = shadows.reshape(L, N).contiguous()
+    if kc.use_kernel(kernels, state["d"][0]):
+        return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
+                                   shadows, use_pair, last, tables)
+    return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
+                               shadows, use_pair, last, tables)
+
+
+def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
+                        use_pair, last, tables):
+    """The plain PyTorch version of the kernel (planar 3-tuples)."""
+    mat_tab, light_tab, _ = tables
+    S = scene.sph_center.shape[0]
+    Q = scene.quad_v0.shape[0]
+    ref = cfg.compat == "reference"
+    eps = cfg.epsilon
+    d, th = state["d"], state["throughput"]
+    active = state["active"]
+    miss = k1["j"] < 0
+    j = torch.clamp_min(k1["j"], 0)
+    live = active & ~miss
+    is_quad = (j >= S) & (j < S + Q)
+    u, v = k1["u"], k1["v"]
+    p, n = k1["p"], k1["n"]
+
+    # ---- sky on miss ----------------------------------------------------
+    sky = shading.skybox_color_p(scene, d, n_rem, ref)
+    amiss = active & miss
+    acc = tuple(a + torch.where(amiss, t * c, 0.0)
+                for a, t, c in zip(state["acc"], th, sky))
+
+    # ---- material row by mid --------------------------------------------
+    mr = mat_tab[torch.clamp(k1["mid"], 0, mat_tab.shape[0] - 1).long()]
+
+    def col3(c):
+        return mr[:, c], mr[:, c + 1], mr[:, c + 2]
+
+    diffuse, check1, check2, light_col = col3(0), col3(3), col3(6), col3(9)
+    k_emit, transp, ior = mr[:, 12], mr[:, 13], mr[:, 14]
+    mtype = mr[:, 15].to(torch.int32)
+    textype = mr[:, 16].to(torch.int32)
+    use_nmf, sx, sy = mr[:, 17], mr[:, 18], mr[:, 19]
+
+    # ---- texturing ------------------------------------------------------
+    same = shading.trunc_mod2(u * sx) == shading.trunc_mod2(v * sy)
+    checker = vp.where(same, check1, check2)
+    img = shading.magenta_checker_p(u, v)
+    if use_pair:
+        prow = torch.clamp(k1["row"], 0, scene.pair_pack.shape[0] - 1).long()
+        sub = k1["sub"].long()
+        vt = scene.pair_pack[prow, sub]
+        vn = scene.pair_pack[prow, shading.PACK_BLOCK + sub]
+        img = vp.where(k1["ptex"] > 0.5, shading.decode_word(vt), img)
+    is_check = textype == shading.TEX_CHECKERBOARD
+    is_img = textype == shading.TEX_IMAGE
+    dcol = vp.where(is_img, img, vp.where(is_check, checker, diffuse))
+
+    # ---- normal mapping (squares only, Scene.h:284) ---------------------
+    if use_pair:
+        nm = tuple(2.0 * c - 1.0 for c in shading.decode_word(vn))
+        tan, bitan = k1["tan"], k1["bitan"]
+        n2 = vp.normalize(tuple(nm[0] * tan[a] + nm[1] * bitan[a]
+                                + nm[2] * n[a] for a in range(3)))
+        n = vp.where(is_quad & (k1["pnm"] > 0.5) & (use_nmf > 0.5), n2, n)
+
+    # ---- emission (spheres and squares only) ----------------------------
+    ecol = vp.where(textype == shading.TEX_NONE, light_col,
+                    vp.where(is_img, img,
+                             vp.where(is_check, checker, light_col)))
+
+    # ---- direct lighting from the given shadow factors ------------------
+    zero = torch.zeros_like(u)
+    cl = (zero, zero, zero)
+    for i in range(scene.light_pos.shape[0]):
+        ldir = vp.normalize(tuple(light_tab[i, a] - p[a] for a in range(3)))
+        lam = torch.clamp_min(vp.dot(ldir, n), 0.0) * (1.0 - transp)
+        li = 0 if ref else i   # lights[0] color quirk (Scene.h:311)
+        ci = tuple(light_tab[li, 3 + a] * dcol[a] * lam for a in range(3))
+        sh = shadows[i]
+        if ref:   # quirk: multiplies everything accumulated (Scene.h:333)
+            cl = tuple(sh * (c + x) for c, x in zip(cl, ci))
+        else:
+            cl = tuple(c + x * sh for c, x in zip(cl, ci))
+    acc = tuple(a + torch.where(live, t * (c + k_emit * e), 0.0)
+                for a, t, c, e in zip(acc, th, cl, ecol))
+    if last:
+        return acc
+
+    # ---- BSDF scatter (Material.cpp:26-60) ------------------------------
+    ddn = vp.dot(d, n)
+    ior_inv = 1.0 / torch.where(ior > 1e-12, ior, 1.0)
+    if ref:   # inverted-eta quirk
+        ri = torch.where(ddn > 0.0, ior_inv, ior)
+    else:
+        ri = torch.where(ddn > 0.0, ior, ior_inv)
+    cos_t = torch.clamp_max(-ddn, 1.0)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    if ref:
+        cannot = (ri * sin_t - 0.6) > 1.0           # -0.6 fudge quirk
+    else:
+        cannot = (ri * sin_t) > 1.0
+    u_glass = rng.uniform(rng.salted(bkeys, rng.SCATTER_GLASS))
+    r0 = (1.0 - ri) / (1.0 + ri)
+    r0 = r0 * r0
+    mm = torch.clamp_min(1.0 - cos_t, 0.0)
+    m2 = mm * mm
+    use_reflect = cannot | (r0 + (1.0 - r0) * (m2 * m2 * mm) > u_glass)
+    kr = 2.0 * ddn
+    refl = tuple(d[a] - kr * n[a] for a in range(3))
+    cth = torch.clamp_max(ddn, 1.0)
+    pp = tuple(ri * (cth * n[a] + d[a]) for a in range(3))
+    par = -torch.sqrt(torch.clamp_min(torch.abs(1.0 - vp.dot(pp, pp)),
+                                      1e-12))
+    glass = vp.where(use_reflect, refl,
+                     tuple(par * n[a] + pp[a] for a in range(3)))
+    skey = rng.salted(bkeys, rng.SCATTER_DIR)
+    ru = (rng.cube_unit_vector_lane_p(skey, 0) if ref
+          else rng.sphere_unit_vector_lane_p(skey, 0))
+    diff = tuple(n[a] + ru[a] for a in range(3))
+    diff = vp.where(torch.sqrt(vp.dot(diff, diff)) <= eps, n, diff)
+    dout = vp.normalize(vp.where(mtype == GLASS, glass,
+                                 vp.where(mtype == MIRROR, refl, diff)))
+    return dict(
+        o=vp.where(live, tuple(eps * dout[a] + p[a] for a in range(3)),
+                   state["o"]),
+        d=vp.where(live, dout, d), time=state["time"],
+        throughput=vp.where(live, tuple(t * c for t, c in zip(th, dcol)),
+                            th),
+        acc=acc, active=live)
+
+
+_IO_FIELDS = (
+    "dx", "dy", "dz", "ox", "oy", "oz", "thx", "thy", "thz",
+    "ax", "ay", "az", "active", "key", "j", "px", "py", "pz",
+    "nx", "ny", "nz", "u", "v", "tnx", "tny", "tnz", "btx", "bty", "btz",
+    "mid", "row", "sub", "ptex", "pnm", "shadows", "mat", "light", "pair",
+    "out", "active_out")
+
+
+class _IO(ctypes.Structure):
+    """Mirror of `ShadeIO` in csrc/shade_scatter.cu (same order)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in _IO_FIELDS]
+
+
+class _Params(ctypes.Structure):
+    """Mirror of `ShadeParams` in csrc/shade_scatter.cu (same order)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last")] + [
+        (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")]
+
+
+def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
+                        use_pair, last, tables):
+    from tracer_torch.kernels import _build
+    global LAUNCHES
+    mat_tab, light_tab, dark = tables
+    d0 = state["d"][0]
+    dev, N = d0.device, d0.shape[0]
+    L = scene.light_pos.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    io = _IO()
+    planar = dict(d="d", o="o", th="throughput", a="acc")
+    for pre, key in planar.items():
+        for ax_, t in zip("xyz", state[key]):
+            setattr(io, pre + ax_, kc.check(f"{key}.{ax_}", t, f32, (N,), dev))
+    io.active = kc.check("active", state["active"], torch.bool, (N,), dev)
+    keys32 = rng.as_int32_bits(bkeys)
+    io.key = kc.check("keys", keys32, i32, (N,), dev)
+    for name in ("j", "mid", "row", "sub"):
+        setattr(io, name, kc.check(name, k1[name], i32, (N,), dev))
+    for pre, key in (("p", "p"), ("n", "n"), ("tn", "tan"), ("bt", "bitan")):
+        for ax_, t in zip("xyz", k1[key]):
+            setattr(io, pre + ax_, kc.check(f"{key}.{ax_}", t, f32, (N,), dev))
+    for name in ("u", "v", "ptex", "pnm"):
+        setattr(io, name, kc.check(name, k1[name], f32, (N,), dev))
+    if L > 0:
+        io.shadows = kc.check("shadows", shadows, f32, (L, N), dev)
+    M = mat_tab.shape[0]
+    io.mat = kc.check("mat", mat_tab, f32, (M, MAT_COLS), dev)
+    io.light = kc.check("light", light_tab, f32, (max(L, 1), 6), dev)
+    Rp = scene.pair_pack.shape[0]
+    io.pair = kc.check("pair_pack", scene.pair_pack, i32,
+                       (Rp, 2 * shading.PACK_BLOCK), dev)
+    out = torch.empty((3 if last else 12, N), dtype=f32, device=dev)
+    io.out = out.data_ptr()
+    active_out = None
+    if not last:
+        active_out = torch.empty(N, dtype=torch.bool, device=dev)
+        io.active_out = active_out.data_ptr()
+    prm = _Params(n=N, M=M, Rp=Rp, L=L,
+                  S=scene.sph_center.shape[0], Q=scene.quad_v0.shape[0],
+                  ref=int(cfg.compat == "reference"),
+                  has_pair=int(bool(use_pair)), last=int(bool(last)),
+                  eps=float(cfg.epsilon), n_rem=float(n_rem), dark=dark)
+    if N > 0:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.library().tt_shade_scatter(
+            ctypes.addressof(io), ctypes.addressof(prm), stream)
+        kc.raise_on_error("shade_scatter", err)
+        LAUNCHES += 1
+    if last:
+        return (out[0], out[1], out[2])
+    return dict(o=(out[0], out[1], out[2]), d=(out[3], out[4], out[5]),
+                time=state["time"], throughput=(out[6], out[7], out[8]),
+                acc=(out[9], out[10], out[11]), active=active_out)

@@ -1,0 +1,63 @@
+"""Pinhole camera (the port of `tracer/render/camera.py`).
+
+dir_cam ∝ ((2u-1)·aspect·tan(fov/2), (1-2v)·tan(fov/2), -1), rotated by
+the pose quaternion; origin = camera position. The default pose is the
+reference app's startup framing: eye at (0, 0, 6.1), identity rotation.
+
+Precision: the 3×3 rotation is applied as explicit float32 multiply-adds,
+never through a matmul, so TF32 (the GPU counterpart of the TPU's bf16
+matmul passes) cannot move the rays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    position: torch.Tensor        # [3]
+    quaternion: torch.Tensor      # [4] (w, x, y, z) camera->world rotation
+    fov_deg: torch.Tensor         # scalar
+    aspect: torch.Tensor          # scalar
+
+
+def default_camera(aspect: float = 850.0 / 480.0, device="cpu") -> Camera:
+    f = dict(dtype=torch.float32, device=device)
+    return Camera(
+        position=torch.tensor([0.0, 0.0, 6.1], **f),
+        quaternion=torch.tensor([1.0, 0.0, 0.0, 0.0], **f),
+        fov_deg=torch.tensor(45.0, **f),
+        aspect=torch.tensor(aspect, **f),
+    )
+
+
+def quat_to_matrix(q):
+    """Unit quaternion (w,x,y,z) -> rotation rows ((r00, r01, r02), ...)."""
+    q = q / torch.clamp_min(torch.sqrt(torch.sum(q * q)), 1e-20)
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    return (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+
+
+def generate_rays(camera: Camera, u, v):
+    """Screen (u, v) in [0,1]^2 (v down) -> planar world rays (o, d), each
+    a tuple of three [N] tensors."""
+    deg2rad = float(np.float32(np.pi / 180.0))
+    th = torch.tan(camera.fov_deg * deg2rad * 0.5)
+    x = (2.0 * u - 1.0) * camera.aspect * th
+    y = (1.0 - 2.0 * v) * th
+    z = -torch.ones_like(x)
+    R = quat_to_matrix(camera.quaternion)
+    dw = tuple(x * R[i][0] + y * R[i][1] + z * R[i][2] for i in range(3))
+    n = torch.clamp_min(torch.sqrt(dw[0] * dw[0] + dw[1] * dw[1]
+                                   + dw[2] * dw[2]), 1e-20)
+    d = tuple(c / n for c in dw)
+    o = tuple(camera.position[i].expand_as(x).contiguous() for i in range(3))
+    return o, d

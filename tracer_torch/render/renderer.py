@@ -1,0 +1,99 @@
+"""Top-level renderer (the port of `tracer/render/renderer.py`): the
+pixels × samples grid is a flat ray stream traced in device batches;
+samples are summed into a float film, then per-pixel mean, gamma 1/2.2 and
+clamp reproduce the reference's main.cpp:193-196 / 258-261.
+
+Not ported yet: the tiled, checkpointed render (`ckpt_dir`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tracer_torch.core import rng
+from tracer_torch.core.config import RenderConfig
+from tracer_torch.core.mathutils import gamma_correct
+from tracer_torch.render import integrator
+from tracer_torch.render.camera import Camera, generate_rays
+
+
+def camera_batch(camera: Camera, width: int, height: int, pixel_ids,
+                 sample_idx: int, seed: int):
+    """One sample's camera rays for a batch of pixels: pixel jitter and ray
+    time from the PCG streams. pixel_ids: [N] int (flat y*width + x).
+    Returns (o, d, time, keys) with o, d planar."""
+    keys = rng.ray_keys(seed, pixel_ids)
+    keys = rng.salted(keys, sample_idx)
+    jit_uv = rng.uniform(rng.salted(keys, rng.PIXEL_JITTER), (2,))
+    pid = pixel_ids.to(torch.int64)
+    x = (pid % width).to(torch.float32)
+    y = (pid // width).to(torch.float32)
+    # the JAX renderer divides by the static width/height, which XLA turns
+    # into a multiply by the f32 reciprocal
+    u = (x + jit_uv[:, 0]) * float(np.float32(1.0) / np.float32(width))
+    v = (y + jit_uv[:, 1]) * float(np.float32(1.0) / np.float32(height))
+    time = rng.uniform(rng.salted(keys, rng.RAY_TIME))
+    o, d = generate_rays(camera, u, v)
+    return o, d, time, keys
+
+
+def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
+                  height: int, pixel_ids, sample_idx: int, seed: int,
+                  tables=None):
+    """Radiance [N, 3] for one sample of a batch of pixels."""
+    o, d, time, keys = camera_batch(camera, width, height, pixel_ids,
+                                    sample_idx, seed)
+    return integrator.trace(scene, cfg, o, d, time, keys, tables=tables)
+
+
+@torch.no_grad()
+def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
+                  height: int, pixel_ids, nsamples: int, seed: int):
+    """SUM of `nsamples` sample passes for `pixel_ids` [N] (divide by
+    nsamples for the mean radiance). Returns [N, 3] f32."""
+    integrator.check_scene(scene, cfg)
+    tables = integrator.prepare(scene)
+    acc = torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,
+                      device=pixel_ids.device)
+    for s in range(nsamples):
+        acc = acc + _render_batch(scene, camera, cfg, width, height,
+                                  pixel_ids, s, seed, tables)
+    return acc
+
+
+@torch.no_grad()
+def render(scene, camera: Camera, cfg: RenderConfig, width=None,
+           height=None, nsamples=None, progress=False):
+    """Full-frame render -> float32 numpy [H, W, 3] gamma-corrected image,
+    traced on the scene's device in chunks of `cfg.rays_per_batch` pixels.
+    """
+    width = width or cfg.width
+    height = height or cfg.height
+    nsamples = nsamples or cfg.nsamples
+    dev = scene.device
+    n_pix = width * height
+    chunk = min(cfg.rays_per_batch, n_pix)
+    film = np.zeros((n_pix, 3), np.float32)
+    for lo in range(0, n_pix, chunk):
+        hi = min(lo + chunk, n_pix)
+        pid = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        rad = render_pixels(scene, camera, cfg, width, height, pid,
+                            nsamples, cfg.seed)
+        film[lo:hi] = rad.cpu().numpy()
+        if progress:
+            print(f"  pixels {hi}/{n_pix}", flush=True)
+    img = film / np.float32(nsamples)
+    img = gamma_correct(torch.from_numpy(img)).numpy()
+    return np.clip(img, 0.0, 1.0).reshape(height, width, 3)
+
+
+def render_image(scene, camera, cfg, path, **kw):
+    """Render and write a PPM (or PNG by extension) like main.cpp:251-262."""
+    from tracer_torch.io.ppm import write_ppm, write_png
+    img = render(scene, camera, cfg, **kw)
+    if path.endswith(".png"):
+        write_png(path, img)
+    else:
+        write_ppm(path, img)
+    return img

@@ -1,0 +1,513 @@
+"""Scene compiler: SceneBuilder -> DeviceScene (SoA torch tensors).
+
+The port of `tracer/scene/device.py`: one flat SoA table per primitive
+class plus a material table indexed by a per-primitive material id, so
+shading is branchless gathers and selects. Textures live in flat atlases
+with per-texture (offset, w, h), plus the packed-u32 twins and the
+pair-packed atlas (one row holds 16 texture words and the 16 normal-map
+words of the same texel indices). Field names, shapes, dtypes and values
+equal the JAX `DeviceScene` field by field (tests/test_torch_scene.py).
+
+Meshes raise NotImplementedError: the triangle soup and its BVHs come with
+the traversal kernel (ROADMAP.md Queue A, "Mesh scenes").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tracer_torch.scene import builder as B
+
+_META = ("mesh_root", "mesh_end", "leaf_width", "has_sky_image", "pair_mode",
+         "emissive_tex_image", "sphere_uv_needed", "n_sph_real",
+         "n_quad_real")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceScene:
+    # --- spheres (padded to multiple of 8) -------------------------------
+    sph_center: torch.Tensor      # [S, 3]
+    sph_radius: torch.Tensor      # [S]
+    sph_mat: torch.Tensor         # [S] i32
+    sph_valid: torch.Tensor       # [S] f32 (1 real, 0 pad)
+
+    # --- quads -----------------------------------------------------------
+    quad_v0: torch.Tensor         # [Q, 3] transformed vertex 0 (bottom-left)
+    quad_er: torch.Tensor         # [Q, 3] v1 - v0
+    quad_eu: torch.Tensor         # [Q, 3] v3 - v0
+    quad_normal: torch.Tensor     # [Q, 3] normalize(cross(er, eu))
+    quad_tan: torch.Tensor        # [Q, 3] setQuad m_right_vector (stale frame)
+    quad_bitan: torch.Tensor      # [Q, 3] setQuad m_up_vector
+    quad_mat: torch.Tensor        # [Q] i32
+    quad_valid: torch.Tensor      # [Q] f32
+
+    # --- triangle soup (only the sentinel row until meshes are ported) ---
+    tri_a: torch.Tensor           # [T, 3]
+    tri_b: torch.Tensor           # [T, 3]
+    tri_c: torch.Tensor           # [T, 3]
+    mesh_verts: torch.Tensor      # [V, 3]
+    tri_va: torch.Tensor          # [T] i32
+    tri_vb: torch.Tensor          # [T] i32
+    tri_vc: torch.Tensor          # [T] i32
+    tri_mesh: torch.Tensor        # [T] i32
+    tri_col_a: torch.Tensor       # [T, 3]
+    tri_col_b: torch.Tensor       # [T, 3]
+    tri_col_c: torch.Tensor       # [T, 3]
+    tri_has_col: torch.Tensor     # [T] f32
+    mesh_mat: torch.Tensor        # [Nm] i32
+
+    # --- flattened BVHs --------------------------------------------------
+    bvh_lo: torch.Tensor          # [Bn, 3]
+    bvh_hi: torch.Tensor          # [Bn, 3]
+    bvh_leaf_start: torch.Tensor  # [Bn] i32
+    bvh_skip: torch.Tensor        # [Bn] i32
+    bvh_leaf_tris: torch.Tensor   # [NL * LW] i32
+
+    # --- material table --------------------------------------------------
+    mat_diffuse: torch.Tensor     # [M, 3]
+    mat_specular: torch.Tensor    # [M, 3]
+    mat_shininess: torch.Tensor   # [M]
+    mat_mb: torch.Tensor          # [M, 3] motion_blur_translation
+    mat_ior: torch.Tensor         # [M]
+    mat_transparency: torch.Tensor  # [M]
+    mat_type: torch.Tensor        # [M] i32 (0 diffuse, 1 glass, 2 mirror)
+    mat_textype: torch.Tensor     # [M] i32 (0 none, 1 checker, 2 image)
+    mat_check1: torch.Tensor      # [M, 3]
+    mat_check2: torch.Tensor      # [M, 3]
+    mat_texscale: torch.Tensor    # [M, 2] (x, y)
+    mat_emissive: torch.Tensor    # [M] f32
+    mat_light_color: torch.Tensor  # [M, 3]
+    mat_light_intensity: torch.Tensor  # [M]
+    mat_tex: torch.Tensor         # [M] i32 texture slot (0 reserved = none)
+    mat_nm: torch.Tensor          # [M] i32 normal-map slot (0 = none)
+
+    # --- texture atlas (slot 0 is a 0x0 "missing" entry) -----------------
+    tex_data: torch.Tensor        # [P, 3] f32 in [0,1]
+    tex_off: torch.Tensor         # [K] i32
+    tex_w: torch.Tensor           # [K] i32
+    tex_h: torch.Tensor           # [K] i32
+    nm_data: torch.Tensor         # [Pn, 3] f32 raw (decode at sample time)
+    nm_off: torch.Tensor
+    nm_w: torch.Tensor
+    nm_h: torch.Tensor
+    tex_pack: torch.Tensor        # [ceil(P/16), 16] i32, 0xRRGGBB words
+    nm_pack: torch.Tensor         # [ceil(Pn/16), 16] i32
+    sky_pack: torch.Tensor        # [ceil(Ps/16), 16] i32
+    # pair-packed atlas: cols 0:16 texture words, 16:32 normal-map words
+    pair_pack: torch.Tensor       # [Rp, 32] i32
+    mat_pair_off: torch.Tensor    # [M] i32 pair-region row offset
+    mat_pair_wa: torch.Tensor     # [M] i32 primary index-space width
+    mat_pair_ha: torch.Tensor     # [M] i32 primary index-space height
+    mat_pair_wb: torch.Tensor     # [M] i32 product-region 2nd width (0=plain)
+    mat_pair_hb: torch.Tensor     # [M] i32 product-region 2nd height
+    mat_pair_tex: torch.Tensor    # [M] i32 1 = cols 0:16 hold real texels
+    mat_pair_nm: torch.Tensor     # [M] i32 1 = cols 16:32 hold real texels
+
+    # --- lights ----------------------------------------------------------
+    light_pos: torch.Tensor       # [L, 3]
+    light_radius: torch.Tensor    # [L]
+    light_color: torch.Tensor     # [L, 3]
+
+    # --- skybox ----------------------------------------------------------
+    sky_data: torch.Tensor        # [Ps, 3] f32 (size 1 when absent)
+    sky_w: torch.Tensor           # i32 scalar (0 when absent)
+    sky_h: torch.Tensor           # i32 scalar
+    dark_sky: torch.Tensor        # f32 scalar (1 => black fallback sky)
+
+    # --- static metadata -------------------------------------------------
+    mesh_root: Tuple[int, ...] = ()
+    mesh_end: Tuple[int, ...] = ()
+    leaf_width: int = 4
+    has_sky_image: bool = False
+    pair_mode: bool = False           # pair_pack covers every needed fetch
+    emissive_tex_image: bool = True   # some emissive material is TEX_IMAGE
+    n_sph_real: int = 0   # real (non-padding) sphere rows
+    n_quad_real: int = 0  # real (non-padding) quad rows
+    sphere_uv_needed: bool = False    # some sphere material has a textype
+
+    @property
+    def device(self) -> torch.device:
+        return self.sph_center.device
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    """numpy -> torch with the JAX package's dtypes (x64 off: f64 -> f32,
+    i64 -> i32)."""
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def device_scene_from_numpy(fields: dict, meta: dict,
+                            device="cpu") -> DeviceScene:
+    """Build the port's DeviceScene from arrays given as numpy (for example
+    a JAX `DeviceScene` as `{name: np.asarray(v)}` plus its static fields),
+    so both packages can run on identical tables."""
+    data = {k: _to_tensor(v, device) for k, v in fields.items()
+            if k not in _META}
+    return DeviceScene(**data, **{k: meta[k] for k in _META if k in meta})
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m if x > 0 else 0
+
+
+PACK_BLOCK = 16  # texels per packed-atlas row
+
+
+def _pack_u8_atlas(rows_u8: np.ndarray) -> np.ndarray:
+    """[P, 3] u8 texels -> [ceil(P/16), 16] i32, 0xRRGGBB per texel."""
+    P = rows_u8.shape[0]
+    rows = max((P + PACK_BLOCK - 1) // PACK_BLOCK, 1)
+    v = rows_u8.astype(np.int32)
+    packed = (v[:, 0] << 16) | (v[:, 1] << 8) | v[:, 2]
+    out = np.zeros(rows * PACK_BLOCK, np.int32)
+    out[:P] = packed
+    return out.reshape(rows, PACK_BLOCK)
+
+
+def _atlas(images):
+    """Pack images (uint8 [H,W,3] or None) into a flat float atlas plus its
+    packed-u32 twin. Slot 0 is always the 'missing' entry (w=h=0)."""
+    data = [np.zeros((1, 3), np.uint8)]
+    off, ws, hs = [0], [0], [0]
+    cursor = 1
+    for img in images:
+        if img is None:
+            off.append(0)
+            ws.append(0)
+            hs.append(0)
+            continue
+        h, w = img.shape[:2]
+        data.append(img.reshape(-1, 3).astype(np.uint8))
+        off.append(cursor)
+        ws.append(w)
+        hs.append(h)
+        cursor += h * w
+    rows_u8 = np.concatenate(data, axis=0)
+    # byte -> [0,1] by MULTIPLY with f32(1/255): the decode every fetch
+    # path uses, so atlas and packed twins agree bit for bit
+    return (rows_u8.astype(np.float32) * np.float32(1.0 / 255.0),
+            np.asarray(off, np.int32), np.asarray(ws, np.int32),
+            np.asarray(hs, np.int32), _pack_u8_atlas(rows_u8))
+
+
+TEX_IMAGE = 2
+
+# pair_mode is disabled when the pair atlas would exceed this many entries
+_PAIR_MAX_ENTRIES = 64 * 1024 * 1024
+
+
+def _axis_pairs(Wa: int, Wb: int):
+    """All f32-achievable (x_a, x_b) = (trunc(w*(Wa-1)), trunc(w*(Wb-1)))
+    for f32 w in [0, 1], as arrays indexed by the sum s = x_a + x_b.
+
+    Both staircases are monotone nondecreasing in w, so each achievable sum
+    identifies a UNIQUE pair: that is what lets two images of different
+    widths share one fetch index (product regions). The walk samples ulp
+    neighbourhoods of every exact breakpoint plus interval midpoints in f32.
+    Returns (xa[s], xb[s], ok) with -1 at unachievable sums; ok=False on a
+    consistency violation (the caller then gives up pair_mode).
+    """
+    bps = {0.0, 1.0}
+    for W in (Wa, Wb):
+        for k in range(1, max(W - 1, 0) + 1):
+            bps.add(k / (W - 1))
+    b64 = np.array(sorted(bps), np.float64)
+    mids = ((b64[:-1] + b64[1:]) / 2).astype(np.float32)
+    f32b = b64.astype(np.float32)
+    cands = [f32b, mids]
+    lo = f32b
+    hi = f32b
+    for _ in range(8):  # +-8 ulps around each breakpoint
+        lo = np.nextafter(lo, np.float32(-1.0), dtype=np.float32)
+        hi = np.nextafter(hi, np.float32(2.0), dtype=np.float32)
+        cands.append(lo)
+        cands.append(hi)
+    w = np.unique(np.clip(np.concatenate(cands), np.float32(0.0),
+                          np.float32(1.0)))
+
+    def stairs(W):
+        x = np.trunc(w * np.float32(W - 1))
+        return np.clip(x, 0, max(W - 1, 0)).astype(np.int64)
+
+    xa = stairs(Wa)
+    xb = stairs(Wb)
+    s = xa + xb
+    Sc = (Wa - 1) + (Wb - 1) + 1
+    ta = np.full(Sc, -1, np.int64)
+    tb = np.full(Sc, -1, np.int64)
+    order = np.argsort(s, kind="stable")
+    s_o, xa_o, xb_o = s[order], xa[order], xb[order]
+    first = np.ones(len(s_o), bool)
+    first[1:] = s_o[1:] != s_o[:-1]
+    ta[s_o[first]] = xa_o[first]
+    tb[s_o[first]] = xb_o[first]
+    ok = not (np.any(ta[s] != xa) or np.any(tb[s] != xb))
+    return ta, tb, ok
+
+
+def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
+    """Pair-packed atlas: for each material that fetches texels, a region
+    keyed by its (texture slot, normal-map slot) pair, rows of 16 texture
+    words (cols 0:16) + 16 normal-map words (cols 16:32). The nm half is
+    needed only for materials used by a quad (normal maps apply to squares
+    only, Scene.h:284).
+
+    Matched dims: the region is the tex index space and the nm texel sits
+    at the same index. Mismatched dims: a PRODUCT region indexed by
+    rel = (y_t+y_n)*(Wt+Wn-1) + (x_t+x_n) (see _axis_pairs).
+
+    Returns numpy (pack [Rp,32] i32, off, wa, ha, wb, hb, tex_ok, nm_ok)
+    per material, and pair_mode.
+    """
+    M = len(mats)
+    off = np.zeros(M, np.int32)
+    wa = np.zeros(M, np.int32)
+    ha = np.zeros(M, np.int32)
+    wb = np.zeros(M, np.int32)
+    hb = np.zeros(M, np.int32)
+    tex_ok = np.zeros(M, np.int32)
+    nm_ok = np.zeros(M, np.int32)
+    empty = np.zeros((1, 2 * PACK_BLOCK), np.int32)
+
+    def bail():
+        z = np.zeros(M, np.int32)
+        return (empty, z, z, z, z, z, z, z, False)
+
+    def word(img):
+        v = img.reshape(-1, 3).astype(np.int32)
+        return (v[:, 0] << 16) | (v[:, 1] << 8) | v[:, 2]
+
+    regions: dict = {}
+    blocks = []
+    cursor = 0
+    total_entries = 0
+    for mi, m in enumerate(mats):
+        is_quad = mi in quad_rows
+        tslot = m.texture_id if m.texture_type == TEX_IMAGE else -1
+        timg = (textures[tslot] if 0 <= tslot < len(textures) else None)
+        nslot = m.normal_map_id if is_quad else -1
+        nimg = (normal_maps[nslot] if 0 <= nslot < len(normal_maps)
+                else None)
+        if timg is None and nimg is None:
+            continue
+        key = (tslot if timg is not None else -1,
+               nslot if nimg is not None else -1)
+        if key not in regions:
+            if timg is not None and nimg is not None \
+                    and timg.shape[:2] != nimg.shape[:2]:
+                # product region
+                Ht, Wt = timg.shape[:2]
+                Hn, Wn = nimg.shape[:2]
+                xt, xn, okx = _axis_pairs(Wt, Wn)
+                yt, yn, oky = _axis_pairs(Ht, Hn)
+                if not (okx and oky):
+                    return bail()
+                Wc = Wt + Wn - 1
+                Hc = Ht + Hn - 1
+                P = Wc * Hc
+                total_entries += P
+                if total_entries > _PAIR_MAX_ENTRIES:
+                    return bail()
+                tflat = word(timg)
+                nflat = word(nimg)
+                # entry (sy, sx): tex[yt[sy]*Wt+xt[sx]], nm[yn[sy]*Wn+xn[sx]]
+                xt_s = np.where(xt < 0, 0, xt)
+                xn_s = np.where(xn < 0, 0, xn)
+                yt_s = np.where(yt < 0, 0, yt)
+                yn_s = np.where(yn < 0, 0, yn)
+                hole = (xt[None, :] < 0) | (yt[:, None] < 0)
+                ti = yt_s[:, None] * Wt + xt_s[None, :]
+                ni = yn_s[:, None] * Wn + xn_s[None, :]
+                tw = np.where(hole, 0, tflat[ti]).reshape(-1)
+                nw = np.where(hole, 0, nflat[ni]).reshape(-1)
+                rows = (P + PACK_BLOCK - 1) // PACK_BLOCK
+                tw = np.concatenate(
+                    [tw, np.zeros(rows * PACK_BLOCK - P, np.int32)])
+                nw = np.concatenate(
+                    [nw, np.zeros(rows * PACK_BLOCK - P, np.int32)])
+                dims = (Wt, Ht, Wn, Hn)
+            else:
+                base = timg if timg is not None else nimg
+                H, W = base.shape[:2]
+                P = H * W
+                total_entries += P
+                if total_entries > _PAIR_MAX_ENTRIES:
+                    return bail()
+                rows = (P + PACK_BLOCK - 1) // PACK_BLOCK
+                tw = np.zeros(rows * PACK_BLOCK, np.int32)
+                nw = np.zeros(rows * PACK_BLOCK, np.int32)
+                if timg is not None:
+                    tw[:P] = word(timg)
+                if nimg is not None:
+                    nw[:P] = word(nimg)
+                dims = (W, H, 0, 0)
+            blocks.append(np.concatenate(
+                [tw.reshape(rows, PACK_BLOCK),
+                 nw.reshape(rows, PACK_BLOCK)], axis=1))
+            regions[key] = (cursor,) + dims
+            cursor += rows
+        o, Wa_, Ha_, Wb_, Hb_ = regions[key]
+        off[mi] = o
+        wa[mi], ha[mi], wb[mi], hb[mi] = Wa_, Ha_, Wb_, Hb_
+        tex_ok[mi] = 1 if timg is not None else 0
+        nm_ok[mi] = 1 if nimg is not None else 0
+    pack = np.concatenate(blocks, axis=0) if blocks else empty
+    return pack, off, wa, ha, wb, hb, tex_ok, nm_ok, True
+
+
+def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
+                  bvh_max_depth: int = 64, pad: int = 8,
+                  device="cpu") -> DeviceScene:
+    """Lower a SceneBuilder to a DeviceScene on `device`."""
+    if sb.meshes:
+        raise NotImplementedError(
+            "mesh scenes need the BVH traversal kernel, which is not ported "
+            "yet (ROADMAP.md Queue A, 'Mesh scenes')")
+    mats: list[B.Material] = []
+
+    def mat_id(m: B.Material) -> int:
+        mats.append(m)
+        return len(mats) - 1
+
+    # ---- spheres --------------------------------------------------------
+    S = len(sb.spheres)
+    Sp = max(_round_up(S, pad), pad)
+    sph_center = np.zeros((Sp, 3), np.float32)
+    sph_radius = np.zeros(Sp, np.float32)
+    sph_mat = np.zeros(Sp, np.int32)
+    sph_valid = np.zeros(Sp, np.float32)
+    for i, s in enumerate(sb.spheres):
+        sph_center[i] = s.center
+        sph_radius[i] = s.radius
+        sph_mat[i] = mat_id(s.material)
+        sph_valid[i] = 1.0
+
+    # ---- quads ----------------------------------------------------------
+    Q = len(sb.squares)
+    Qp = max(_round_up(Q, pad), pad)
+    quad_v0 = np.zeros((Qp, 3), np.float32)
+    quad_er = np.zeros((Qp, 3), np.float32)
+    quad_eu = np.zeros((Qp, 3), np.float32)
+    quad_normal = np.zeros((Qp, 3), np.float32)
+    quad_tan = np.zeros((Qp, 3), np.float32)
+    quad_bitan = np.zeros((Qp, 3), np.float32)
+    quad_mat = np.zeros(Qp, np.int32)
+    quad_valid = np.zeros(Qp, np.float32)
+    quad_er[:, 0] = 1.0  # avoid zero-length pads
+    quad_eu[:, 1] = 1.0
+    quad_normal[:, 2] = 1.0
+    for i, q in enumerate(sb.squares):
+        v = q.verts
+        er, eu = v[1] - v[0], v[3] - v[0]
+        n = np.cross(er.astype(np.float64), eu.astype(np.float64))
+        n = n / max(np.linalg.norm(n), 1e-30)
+        quad_v0[i], quad_er[i], quad_eu[i] = v[0], er, eu
+        quad_normal[i] = n
+        quad_tan[i], quad_bitan[i] = q.tangent, q.bitangent
+        quad_mat[i] = mat_id(q.material)
+        quad_valid[i] = 1.0
+
+    # ---- triangle soup: the sentinel row alone (no meshes) --------------
+    z3 = np.zeros((1, 3), np.float32)
+    z0 = np.zeros(1, np.int32)
+
+    # ---- material table -------------------------------------------------
+    if not mats:
+        mats = [B.Material()]
+    mat_diffuse = np.stack([m.diffuse for m in mats])
+    mat_specular = np.stack([m.specular for m in mats])
+    mat_shininess = np.asarray([m.shininess for m in mats], np.float32)
+    mat_mb = np.stack([m.motion_blur_translation for m in mats])
+    mat_ior = np.asarray([m.index_medium for m in mats], np.float32)
+    mat_transp = np.asarray([m.transparency for m in mats], np.float32)
+    mat_type = np.asarray([m.mtype for m in mats], np.int32)
+    mat_textype = np.asarray([m.texture_type for m in mats], np.int32)
+    mat_check1 = np.stack([m.checkerboard_color1 for m in mats])
+    mat_check2 = np.stack([m.checkerboard_color2 for m in mats])
+    mat_texscale = np.asarray(
+        [[m.texture_scale_x, m.texture_scale_y] for m in mats], np.float32)
+    mat_emissive = np.asarray([float(m.emissive) for m in mats], np.float32)
+    mat_light_color = np.stack([m.light_color for m in mats])
+    mat_light_int = np.asarray([m.light_intensity for m in mats], np.float32)
+    mat_tex = np.asarray([m.texture_id + 1 for m in mats], np.int32)
+    mat_nm = np.asarray([m.normal_map_id + 1 for m in mats], np.int32)
+
+    tex_data, tex_off, tex_w, tex_h, tex_pack = _atlas(sb.textures)
+    nm_data, nm_off, nm_w, nm_h, nm_pack = _atlas(sb.normal_maps)
+
+    quad_rows = set(int(quad_mat[i]) for i in range(Q))
+    (pair_pack, mat_pair_off, mat_pair_wa, mat_pair_ha, mat_pair_wb,
+     mat_pair_hb, mat_pair_tex, mat_pair_nm, pair_mode) = _build_pair_atlas(
+        mats, quad_rows, sb.textures, sb.normal_maps)
+
+    # ---- lights ---------------------------------------------------------
+    L = len(sb.lights)
+    light_pos = (np.stack([l.pos for l in sb.lights])
+                 if L else np.zeros((0, 3), np.float32))
+    light_radius = np.asarray([l.radius for l in sb.lights], np.float32)
+    light_color = (np.stack([l.color for l in sb.lights])
+                   if L else np.zeros((0, 3), np.float32))
+
+    # ---- skybox ---------------------------------------------------------
+    if sb.skybox is not None:
+        sh, sw = sb.skybox.shape[:2]
+        sky_u8 = sb.skybox.reshape(-1, 3).astype(np.uint8)
+        sky_data = sky_u8.astype(np.float32) * np.float32(1.0 / 255.0)
+        sky_pack = _pack_u8_atlas(sky_u8)
+    else:
+        sh = sw = 0
+        sky_data = np.zeros((1, 3), np.float32)
+        sky_pack = np.zeros((1, PACK_BLOCK), np.int32)
+
+    fields = dict(
+        sph_center=sph_center, sph_radius=sph_radius, sph_mat=sph_mat,
+        sph_valid=sph_valid,
+        quad_v0=quad_v0, quad_er=quad_er, quad_eu=quad_eu,
+        quad_normal=quad_normal, quad_tan=quad_tan, quad_bitan=quad_bitan,
+        quad_mat=quad_mat, quad_valid=quad_valid,
+        tri_a=z3, tri_b=z3, tri_c=z3, mesh_verts=z3,
+        tri_va=z0, tri_vb=z0, tri_vc=z0, tri_mesh=z0,
+        tri_col_a=z3, tri_col_b=z3, tri_col_c=z3,
+        tri_has_col=np.zeros(1, np.float32),
+        mesh_mat=np.zeros(0, np.int32),
+        bvh_lo=np.zeros((0, 3), np.float32),
+        bvh_hi=np.zeros((0, 3), np.float32),
+        bvh_leaf_start=np.zeros(0, np.int32),
+        bvh_skip=np.zeros(0, np.int32),
+        bvh_leaf_tris=np.zeros(0, np.int32),
+        mat_diffuse=mat_diffuse, mat_specular=mat_specular,
+        mat_shininess=mat_shininess, mat_mb=mat_mb, mat_ior=mat_ior,
+        mat_transparency=mat_transp, mat_type=mat_type,
+        mat_textype=mat_textype, mat_check1=mat_check1,
+        mat_check2=mat_check2, mat_texscale=mat_texscale,
+        mat_emissive=mat_emissive, mat_light_color=mat_light_color,
+        mat_light_intensity=mat_light_int, mat_tex=mat_tex, mat_nm=mat_nm,
+        tex_data=tex_data, tex_off=tex_off, tex_w=tex_w, tex_h=tex_h,
+        nm_data=nm_data, nm_off=nm_off, nm_w=nm_w, nm_h=nm_h,
+        tex_pack=tex_pack, nm_pack=nm_pack, sky_pack=sky_pack,
+        pair_pack=pair_pack, mat_pair_off=mat_pair_off,
+        mat_pair_wa=mat_pair_wa, mat_pair_ha=mat_pair_ha,
+        mat_pair_wb=mat_pair_wb, mat_pair_hb=mat_pair_hb,
+        mat_pair_tex=mat_pair_tex, mat_pair_nm=mat_pair_nm,
+        light_pos=light_pos, light_radius=light_radius,
+        light_color=light_color,
+        sky_data=sky_data, sky_w=np.int32(sw), sky_h=np.int32(sh),
+        dark_sky=np.float32(1.0 if sb.dark_sky else 0.0))
+    meta = dict(
+        mesh_root=(), mesh_end=(), leaf_width=leaf_width,
+        has_sky_image=sb.skybox is not None, pair_mode=pair_mode,
+        emissive_tex_image=bool(
+            np.any((mat_emissive > 0) & (mat_textype == 2))),
+        sphere_uv_needed=bool(
+            np.any((sph_valid > 0) & (mat_textype[sph_mat] != 0))),
+        n_sph_real=S, n_quad_real=Q)
+    return device_scene_from_numpy(fields, meta, device)

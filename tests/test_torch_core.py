@@ -95,7 +95,8 @@ def test_camera_rays(pose):
     u = rs.rand(3000).astype(np.float32)
     v = rs.rand(3000).astype(np.float32)
     if pose == "default":
-        jc, tc = jcam.default_camera(850 / 480), tcam.default_camera(850 / 480)
+        jc = jcam.default_camera(850 / 480)
+        tc = tcam.default_camera(850 / 480, device="cpu")
     else:
         q = np.array([0.9, 0.1, -0.3, 0.2], np.float32)
         p = np.array([1.0, 2.0, 3.0], np.float32)

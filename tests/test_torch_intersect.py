@@ -2,7 +2,8 @@
 against the JAX package's Pallas first-hit kernel, run in interpret mode on
 the CPU as tests/test_kernels.py runs it. Same scene tables (carried across
 with device_scene_from_numpy), same rays made from a seed with numpy.
-Discrete outputs must be equal on live lanes; f32 outputs within 2e-5.
+Discrete outputs (with tex_out=2 the true atlas indices too) must be equal
+on live lanes; f32 outputs within 2e-5.
 
 One exception, measured and bounded: XLA:CPU contracts a*b+c into fused
 multiply-adds inside the JAX kernel and the port does not (neither does the
@@ -36,7 +37,7 @@ def port_scene(js):
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if f.name not in tdevice._META}
     return tdevice.device_scene_from_numpy(
-        fields, {k: getattr(js, k) for k in tdevice._META})
+        fields, {k: getattr(js, k) for k in tdevice._META}, device="cpu")
 
 
 def scene_pair(textured):
@@ -60,7 +61,8 @@ def make_rays(ts, bounce, n=1500, seed=0):
     rs = np.random.RandomState(seed)
     u = torch.from_numpy(rs.rand(n).astype(np.float32))
     v = torch.from_numpy(rs.rand(n).astype(np.float32))
-    o, d = tcam.generate_rays(tcam.default_camera(850 / 480), u, v)
+    o, d = tcam.generate_rays(tcam.default_camera(850 / 480, device="cpu"),
+                              u, v)
     tm = torch.from_numpy(rs.rand(n).astype(np.float32))
     state = integrator._init_state(o, d, tm)
     if bounce == 0:
@@ -125,7 +127,7 @@ def flat(rec):
 
 @pytest.mark.parametrize("bounce", [0, 1])
 @pytest.mark.parametrize("textured,tex_out", [(False, 0), (True, 0),
-                                              (True, 1)])
+                                              (True, 1), (True, 2)])
 def test_first_hits_plain_matches_pallas(textured, tex_out, bounce):
     want, got, live, rays = run_both(textured, tex_out, bounce)
     grazing = grazing_sphere_hits(rays, np.asarray(want["j"])) & live
@@ -148,6 +150,9 @@ def test_first_hits_plain_matches_pallas(textured, tex_out, bounce):
     if tex_out:
         assert (np.asarray(want["ptex"])[live] > 0).any()
         assert np.asarray(want["sub"])[live].max() > 0
+    if tex_out == 2:   # the true atlas indices reach into both atlases
+        assert np.asarray(want["idx_t"])[live].max() > 0
+        assert np.asarray(want["idx_n"])[live].max() > 0
 
 
 def test_first_hits_dead_lane_defaults():

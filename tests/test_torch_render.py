@@ -33,7 +33,7 @@ def port_scene(js):
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if f.name not in tdevice._META}
     return tdevice.device_scene_from_numpy(
-        fields, {k: getattr(js, k) for k in tdevice._META})
+        fields, {k: getattr(js, k) for k in tdevice._META}, device="cpu")
 
 
 def scenes(textured):
@@ -51,7 +51,8 @@ def test_render_pixels_matches_jax(textured, compat):
     assert (ts.pair_pack.shape[0] > 1) == textured
     pid = np.arange(W * H, dtype=np.int32)
     got = trenderer.render_pixels(
-        ts, tcam.default_camera(W / H), TConfig(compat=compat), W, H,
+        ts, tcam.default_camera(W / H, device="cpu"), TConfig(compat=compat),
+        W, H,
         torch.from_numpy(pid), SPP, 0).numpy()
     assert got.shape == (W * H, 3) and np.isfinite(got).all()
     for kernels in ("off", "on"):
@@ -73,7 +74,7 @@ def test_render_image_matches_jax(textured, compat):
     want = jrenderer.render(js, jcam.default_camera(W / H),
                             JConfig(nsamples=SPP, width=W, height=H,
                                     kernels="off", compat=compat))
-    got = trenderer.render(ts, tcam.default_camera(W / H),
+    got = trenderer.render(ts, tcam.default_camera(W / H, device="cpu"),
                            TConfig(nsamples=SPP, width=W, height=H,
                                    compat=compat))
     assert got.shape == (H, W, 3) and got.dtype == np.float32
@@ -83,7 +84,7 @@ def test_render_image_matches_jax(textured, compat):
 def test_render_image_writes_ppm(tmp_path):
     _, ts = scenes(False)
     path = str(tmp_path / "rendu.ppm")
-    img = trenderer.render_image(ts, tcam.default_camera(W / H),
+    img = trenderer.render_image(ts, tcam.default_camera(W / H, device="cpu"),
                                  TConfig(nsamples=1, width=W, height=H), path)
     from tracer_torch.io.ppm import load_ppm
     back = load_ppm(path)
@@ -100,10 +101,11 @@ def test_scenes_outside_the_slice_raise(what):
         sb = SceneBuilder()
         sb.skybox = np.zeros((4, 8, 3), np.uint8)
         sb.add_sphere((0., 0., 0.), 1.0)
-        ts = tdevice.compile_scene(sb)
+        ts = tdevice.compile_scene(sb, device="cpu")
     else:
         ts = port_scene(jcompile(sb))
     pid = torch.arange(8, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trenderer.render_pixels(ts, tcam.default_camera(), TConfig(), 4, 2,
+        trenderer.render_pixels(ts, tcam.default_camera(device="cpu"),
+                                  TConfig(), 4, 2,
                                 pid, 1, 0)

@@ -87,7 +87,7 @@ def _assert_scene_equal(js, ts):
 def test_compile_scene_matches_jax(name):
     make = _scenes()[name]
     js = jcompile(make(jzoo))
-    ts = tdevice.compile_scene(make(tzoo))
+    ts = tdevice.compile_scene(make(tzoo), device="cpu")
     assert [f.name for f in dataclasses.fields(js)] == \
         [f.name for f in dataclasses.fields(ts)]
     _assert_scene_equal(js, ts)
@@ -103,11 +103,11 @@ def test_device_scene_from_numpy_round_trip():
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if f.name not in META}
     meta = {k: getattr(js, k) for k in META}
-    ts = tdevice.device_scene_from_numpy(fields, meta)
+    ts = tdevice.device_scene_from_numpy(fields, meta, device="cpu")
     _assert_scene_equal(js, ts)
     back = tdevice.device_scene_from_numpy(
         {k: getattr(ts, k).numpy() for k in fields},
-        {k: getattr(ts, k) for k in META})
+        {k: getattr(ts, k) for k in META}, device="cpu")
     _assert_scene_equal(js, back)
 
 
@@ -116,7 +116,7 @@ def test_meshes_are_not_ported_yet():
     sb.add_mesh(tbuilder.MeshObject(
         np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32)))
     with pytest.raises(NotImplementedError, match="Mesh scenes"):
-        tdevice.compile_scene(sb)
+        tdevice.compile_scene(sb, device="cpu")
 
 
 @pytest.mark.parametrize("binary", [True, False])

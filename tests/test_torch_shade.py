@@ -38,7 +38,7 @@ def port_scene(js):
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if f.name not in tdevice._META}
     return tdevice.device_scene_from_numpy(
-        fields, {k: getattr(js, k) for k in tdevice._META})
+        fields, {k: getattr(js, k) for k in tdevice._META}, device="cpu")
 
 
 def lit_scene():
@@ -70,7 +70,8 @@ def inputs(js, ts, seed=0):
     rs = np.random.RandomState(seed)
     u = torch.from_numpy(rs.rand(N).astype(np.float32))
     v = torch.from_numpy(rs.rand(N).astype(np.float32))
-    cam = tcam.default_camera(1.0 if js.light_pos.shape[0] else 850 / 480)
+    cam = tcam.default_camera(1.0 if js.light_pos.shape[0] else 850 / 480,
+                              device="cpu")
     o, d = tcam.generate_rays(cam, u, v)
 
     def f32(*shape, lo=0.0, hi=1.0):
@@ -89,7 +90,8 @@ def inputs(js, ts, seed=0):
     return state, keys, k1, use_pair, shadows
 
 
-def jax_shade(js, cfg, state, keys, k1, n_rem, use_pair, shadows, last):
+def jax_shade(js, cfg, state, keys, k1, n_rem, use_pair, shadows, last,
+              rec_out=False):
     j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
     jstate = dict(o=tuple(map(j, state["o"])), d=tuple(map(j, state["d"])),
                   time=j(state["time"]),
@@ -113,7 +115,7 @@ def jax_shade(js, cfg, state, keys, k1, n_rem, use_pair, shadows, last):
     def run(js, jstate, jkeys, jk1, mat_rows, rows, jsh):
         return jshade.shade_scatter(js, cfg, jstate, jkeys, jk1, mat_rows,
                                     jnp.asarray(n_rem), shadows=jsh,
-                                    rows=rows, last=last)
+                                    rows=rows, last=last, rec_out=rec_out)
 
     return run(js, jstate, jkeys, jk1, mat_rows, rows, jsh)
 
@@ -147,6 +149,37 @@ def test_shade_scatter_plain_matches_pallas(name, compat, last):
     # the inputs exercise misses, hits and (Cornell) the emitter
     live = (k1["j"] >= 0) & state["active"]
     assert 0 < int(live.sum()) < N
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("compat", ["reference", "physical"])
+def test_shade_scatter_rec_out_matches_pallas(compat, last):
+    """The record variant: the same state outputs, plus the decoded texel
+    and raw normal-map texel of every active lane (the JAX kernel also
+    writes them on inactive lanes of a live tile; the port writes 0)."""
+    js = jcompile(SCENES["cornell_textured"]())
+    ts = port_scene(js)
+    state, keys, k1, use_pair, shadows = inputs(js, ts)
+    assert use_pair
+    want, wrec = jax_shade(js, JConfig(compat=compat), state, keys, k1, 4,
+                           use_pair, shadows, last, rec_out=True)
+    got, rec = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys,
+                                    k1, 4, use_pair=True, last=last,
+                                    rec_out=True)
+    plain = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys, k1,
+                                 4, use_pair=True, last=last)
+    acc_got = got if last else got["acc"]
+    acc_plain = plain if last else plain["acc"]
+    for a in range(3):   # rec_out changes no other output
+        np.testing.assert_array_equal(acc_got[a].numpy(),
+                                      acc_plain[a].numpy())
+    act = state["active"].numpy()
+    wrec = np.stack([np.asarray(c) for c in wrec[0] + wrec[1]])
+    assert rec.shape == (6, N)
+    np.testing.assert_allclose(rec.numpy()[:, act], wrec[:, act], atol=ATOL,
+                               rtol=0)
+    assert (rec.numpy()[:, ~act] == 0.0).all()
+    assert (rec.numpy()[:, act] > 0.0).any()
 
 
 def test_shade_tables_match():

@@ -19,8 +19,11 @@
 //     16 mb.n, 17 v0.er, 18 mb.er, 19 v0.eu, 20 mb.eu, 21 er.er, 22 eu.eu,
 //     23 glass, 24 valid, 25 midf, 26:29 tan, 29:32 bitan, 32 sx, 33 sy,
 //     34 pair_wa, 35 pair_ha, 36 pair_wb, 37 pair_hb, 38 pair_off,
-//     39 pair_tex, 40 pair_nm, 41:47 true-atlas dims (unused here)
-// Outputs: out_i [5, n] = j, tid, mid, row, sub;
+//     39 pair_tex, 40 pair_nm, 41 tex_off, 42 tex_w, 43 tex_h, 44 nm_off,
+//     45 nm_w, 46 nm_h (the true-atlas dims, read with tex_out=2)
+// Outputs: out_i [5, n] = j, tid, mid, row, sub, and with tex_out=2
+//            [7, n] = ... idx_t, idx_n (true atlas indices, the record
+//            forward's texel-cotangent fold; 0 unless a quad wins);
 //          out_f [16, n] = p(3), n(3), u, v, tan(3), bitan(3), ptex, pnm.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,7 +38,7 @@ struct FirstHitsArgs {
   const float *sph, *quad;
   int* out_i;
   float* out_f;
-  int n, S, S_real, Q, Q_real, tex_out;
+  int n, S, S_real, Q, Q_real, tex_out, p_tex, p_nm;
   float eps;
 };
 
@@ -84,6 +87,10 @@ first_hits_kernel(FirstHitsArgs a) {
     oi[2 * n] = 0;
     oi[3 * n] = 0;
     oi[4 * n] = 0;
+    if (a.tex_out >= 2) {
+      oi[5 * n] = 0;
+      oi[6 * n] = 0;
+    }
     for (int k = 0; k < 16; ++k) of[k * n] = 0.0f;
     of[5 * n] = 1.0f;  // n = (0, 0, 1)
     return;
@@ -207,6 +214,22 @@ first_hits_kernel(FirstHitsArgs a) {
     sub = rel & 15;
     ptex = qr[39];
     pnm = qr[40];
+  }
+  if (a.tex_out >= 2) {
+    // true atlas indices: the same staircase on the texture's and the
+    // normal map's own dims, clipped to the atlas
+    int idx_t = 0, idx_n = 0;
+    if (is_q) {
+      int xt, yt, xn, yn;
+      staircase(uq, vq, qr[32], qr[33], qr[42], qr[43], &xt, &yt);
+      idx_t = tt::clampi((int)qr[41] + yt * (int)qr[42] + xt, 0,
+                         a.p_tex - 1);
+      staircase(uq, vq, qr[32], qr[33], qr[45], qr[46], &xn, &yn);
+      idx_n = tt::clampi((int)qr[44] + yn * (int)qr[45] + xn, 0,
+                         a.p_nm - 1);
+    }
+    oi[5 * n] = idx_t;
+    oi[6 * n] = idx_n;
   }
 
   oi[0] = best >= INF * 0.5f ? -1 : j;

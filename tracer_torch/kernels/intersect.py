@@ -21,6 +21,9 @@ Semantics (mirrored from the TPU kernel):
   tan = bitan = 0, exactly as the TPU kernel's zeroed cache leaves them;
 - `tex_out=1` adds the pair-atlas texel index (row, sub) and the per-lane
   atlas-validity masks (ptex, pnm) for quad winners;
+- `tex_out=2` (the record forward of the backward) also adds the true
+  atlas indices (idx_t, idx_n) of the nearest texel in `tex_data` and
+  `nm_data`, clipped to the atlas, for quad winners; other lanes get 0;
 - lanes with `live` false get the defaults: j = tid = -1, n = (0, 0, 1),
   everything else 0.
 Meshes (the per-mesh BVH hits merged after the eps cut) come with the
@@ -39,8 +42,9 @@ from tracer_torch.kernels import common as kc
 GLASS = 1
 LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
 
-# output layout of the kernel: int32 [5, N] and float32 [16, N]
-I_FIELDS = ("j", "tid", "mid", "row", "sub")
+# output layout of the kernel: int32 [5, N] (tex_out=2: [7, N]) and
+# float32 [16, N]
+I_FIELDS = ("j", "tid", "mid", "row", "sub", "idx_t", "idx_n")
 F_FIELDS = ("px", "py", "pz", "nx", "ny", "nz", "u", "v",
             "tx", "ty", "tz", "bx", "by", "bz", "ptex", "pnm")
 
@@ -101,14 +105,12 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
 
     o, d: planar (x, y, z) of [N] f32; time [N] f32; live [N] bool.
     Returns dict(j [-1 = miss], tid, mid, row, sub (int32), p, n, tan,
-    bitan (planar f32), u, v, ptex, pnm (f32)). `tables`: a precomputed
-    `intersect_tables(scene)`."""
+    bitan (planar f32), u, v, ptex, pnm (f32)), plus idx_t, idx_n (int32)
+    when `tex_out=2`. `tables`: a precomputed `intersect_tables(scene)`."""
     _check_scene(scene)
-    if tex_out not in (0, 1):
-        raise NotImplementedError(
-            "first_hits: tex_out=2 (true atlas indices for the record "
-            "path) is not ported yet (ROADMAP.md Queue A, "
-            "'Main-path backward')")
+    if tex_out not in (0, 1, 2):
+        raise ValueError(f"first_hits: tex_out must be 0, 1 or 2, got "
+                         f"{tex_out!r}")
     if tables is None:
         tables = intersect_tables(scene)
     if kc.use_kernel(kernels, o[0]):
@@ -120,12 +122,15 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
 def _unpack(out_i, out_f):
     i = dict(zip(I_FIELDS, out_i))
     f = dict(zip(F_FIELDS, out_f))
-    return dict(j=i["j"], tid=i["tid"], mid=i["mid"], row=i["row"],
-                sub=i["sub"], p=(f["px"], f["py"], f["pz"]),
-                n=(f["nx"], f["ny"], f["nz"]), u=f["u"], v=f["v"],
-                tan=(f["tx"], f["ty"], f["tz"]),
-                bitan=(f["bx"], f["by"], f["bz"]),
-                ptex=f["ptex"], pnm=f["pnm"])
+    out = dict(j=i["j"], tid=i["tid"], mid=i["mid"], row=i["row"],
+               sub=i["sub"], p=(f["px"], f["py"], f["pz"]),
+               n=(f["nx"], f["ny"], f["nz"]), u=f["u"], v=f["v"],
+               tan=(f["tx"], f["ty"], f["tz"]),
+               bitan=(f["bx"], f["by"], f["bz"]),
+               ptex=f["ptex"], pnm=f["pnm"])
+    if "idx_t" in i:
+        out.update(idx_t=i["idx_t"], idx_n=i["idx_n"])
+    return out
 
 
 def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
@@ -206,6 +211,15 @@ def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
                             zi),
             sub=torch.where(is_q, rel & 15, zi),
             ptex=quad_only(39), pnm=quad_only(40))
+    if tex_out >= 2:
+        # true atlas indices (the record's texel-cotangent fold)
+        for key, c, p_atlas in (("idx_t", 41, scene.tex_data.shape[0]),
+                                ("idx_n", 44, scene.nm_data.shape[0])):
+            xt, yt = texel_xy(quad_only(c + 1), quad_only(c + 2), uq, vq,
+                              sx, sy)
+            it = (quad_only(c).to(torch.int32)
+                  + yt * quad_only(c + 1).to(torch.int32) + xt)
+            out[key] = torch.where(is_q, torch.clamp(it, 0, p_atlas - 1), zi)
 
     # defaults on lanes that are not live
     def dflt(x, v):
@@ -233,7 +247,8 @@ class _Args(ctypes.Structure):
         "out_i", "out_f")] + [
         ("n", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
         ("Q", ctypes.c_int), ("Q_real", ctypes.c_int),
-        ("tex_out", ctypes.c_int), ("eps", ctypes.c_float)]
+        ("tex_out", ctypes.c_int), ("p_tex", ctypes.c_int),
+        ("p_nm", ctypes.c_int), ("eps", ctypes.c_float)]
 
 
 _MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
@@ -251,7 +266,8 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables):
         raise ValueError("first_hits: scene tables exceed the kernel's "
                          f"{_MAX_SMEM} B of shared memory")
     f32, i32 = torch.float32, torch.int32
-    out_i = torch.empty((len(I_FIELDS), N), dtype=i32, device=dev)
+    out_i = torch.empty((7 if tex_out == 2 else 5, N), dtype=i32,
+                        device=dev)
     out_f = torch.empty((len(F_FIELDS), N), dtype=f32, device=dev)
     a = _Args()
     for name, t in zip(("ox", "oy", "oz"), o):
@@ -265,6 +281,7 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables):
     a.out_i, a.out_f = out_i.data_ptr(), out_f.data_ptr()
     a.n, a.S, a.S_real, a.Q, a.Q_real = N, S, S_real, Q, Q_real
     a.tex_out, a.eps = int(tex_out), float(eps)
+    a.p_tex, a.p_nm = scene.tex_data.shape[0], scene.nm_data.shape[0]
     if N > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().tt_first_hits(ctypes.addressof(a), stream)

@@ -18,7 +18,10 @@ compute bound; the design reads each input once, keeps the whole chain in
 registers and writes each output once.
 
 Lanes that are not active pass their state through; `last=True` (the
-final bounce) writes only the radiance accumulator.
+final bounce) writes only the radiance accumulator. `rec_out=True` (the
+record forward of the backward; pair atlas only) also returns the decoded
+texel img(3) and raw normal-map texel rnm(3) that the pass computes anyway,
+as one [6, N] stack, zero on lanes that are not active.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def shade_tables(scene):
 
 
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
-                  use_pair=False, last=False, kernels="auto", tables=None):
+                  use_pair=False, last=False, kernels="auto", tables=None,
+                  rec_out=False):
     """One bounce's shading and scatter over planar ray state.
 
     state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
@@ -77,7 +81,10 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
     k1: the `first_hits` record (j, mid, p, n, u, v, tan, bitan and, with
     `use_pair`, row, sub, ptex, pnm). shadows: [L, N] f32 soft-shadow
     factors, or None when the scene has no lights. Returns the next state
-    dict, or only acc (planar) when `last`."""
+    dict, or only acc (planar) when `last`; with `rec_out` (which needs
+    `use_pair`), the pair (that result, rec [6, N])."""
+    if rec_out and not use_pair:
+        raise ValueError("shade_scatter: rec_out needs use_pair")
     if scene.mesh_mat.shape[0] > 0:
         raise NotImplementedError(
             "shade_scatter: mesh hit detail is not ported yet "
@@ -96,13 +103,13 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
         shadows = shadows.reshape(L, N).contiguous()
     if kc.use_kernel(kernels, state["d"][0]):
         return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
-                                   shadows, use_pair, last, tables)
+                                   shadows, use_pair, last, tables, rec_out)
     return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
-                               shadows, use_pair, last, tables)
+                               shadows, use_pair, last, tables, rec_out)
 
 
 def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables):
+                        use_pair, last, tables, rec_out=False):
     """The plain PyTorch version of the kernel (planar 3-tuples)."""
     mat_tab, light_tab, _ = tables
     S = scene.sph_center.shape[0]
@@ -145,14 +152,20 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
         sub = k1["sub"].long()
         vt = scene.pair_pack[prow, sub]
         vn = scene.pair_pack[prow, shading.PACK_BLOCK + sub]
-        img = vp.where(k1["ptex"] > 0.5, shading.decode_word(vt), img)
+        img_t = shading.decode_word(vt)
+        img = vp.where(k1["ptex"] > 0.5, img_t, img)
     is_check = textype == shading.TEX_CHECKERBOARD
     is_img = textype == shading.TEX_IMAGE
     dcol = vp.where(is_img, img, vp.where(is_check, checker, diffuse))
 
     # ---- normal mapping (squares only, Scene.h:284) ---------------------
+    rec = None
     if use_pair:
-        nm = tuple(2.0 * c - 1.0 for c in shading.decode_word(vn))
+        rnm = shading.decode_word(vn)
+        if rec_out:
+            rec = torch.stack([torch.where(active, c, 0.0)
+                               for c in img_t + rnm])
+        nm = tuple(2.0 * c - 1.0 for c in rnm)
         tan, bitan = k1["tan"], k1["bitan"]
         n2 = vp.normalize(tuple(nm[0] * tan[a] + nm[1] * bitan[a]
                                 + nm[2] * n[a] for a in range(3)))
@@ -179,7 +192,7 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     acc = tuple(a + torch.where(live, t * (c + k_emit * e), 0.0)
                 for a, t, c, e in zip(acc, th, cl, ecol))
     if last:
-        return acc
+        return (acc, rec) if rec_out else acc
 
     # ---- BSDF scatter (Material.cpp:26-60) ------------------------------
     ddn = vp.dot(d, n)
@@ -215,13 +228,14 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     diff = vp.where(torch.sqrt(vp.dot(diff, diff)) <= eps, n, diff)
     dout = vp.normalize(vp.where(mtype == GLASS, glass,
                                  vp.where(mtype == MIRROR, refl, diff)))
-    return dict(
+    nxt = dict(
         o=vp.where(live, tuple(eps * dout[a] + p[a] for a in range(3)),
                    state["o"]),
         d=vp.where(live, dout, d), time=state["time"],
         throughput=vp.where(live, tuple(t * c for t, c in zip(th, dcol)),
                             th),
         acc=acc, active=live)
+    return (nxt, rec) if rec_out else nxt
 
 
 _IO_FIELDS = (
@@ -229,7 +243,7 @@ _IO_FIELDS = (
     "ax", "ay", "az", "active", "key", "j", "px", "py", "pz",
     "nx", "ny", "nz", "u", "v", "tnx", "tny", "tnz", "btx", "bty", "btz",
     "mid", "row", "sub", "ptex", "pnm", "shadows", "mat", "light", "pair",
-    "out", "active_out")
+    "out", "active_out", "rec")
 
 
 class _IO(ctypes.Structure):
@@ -240,12 +254,13 @@ class _IO(ctypes.Structure):
 class _Params(ctypes.Structure):
     """Mirror of `ShadeParams` in csrc/shade_scatter.cu (same order)."""
     _fields_ = [(name, ctypes.c_int) for name in (
-        "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last")] + [
+        "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last",
+        "rec_out")] + [
         (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")]
 
 
 def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables):
+                        use_pair, last, tables, rec_out=False):
     from tracer_torch.kernels import _build
     global LAUNCHES
     mat_tab, light_tab, dark = tables
@@ -282,11 +297,16 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
     if not last:
         active_out = torch.empty(N, dtype=torch.bool, device=dev)
         io.active_out = active_out.data_ptr()
+    rec = None
+    if rec_out:
+        rec = torch.empty((6, N), dtype=f32, device=dev)
+        io.rec = rec.data_ptr()
     prm = _Params(n=N, M=M, Rp=Rp, L=L,
                   S=scene.sph_center.shape[0], Q=scene.quad_v0.shape[0],
                   ref=int(cfg.compat == "reference"),
                   has_pair=int(bool(use_pair)), last=int(bool(last)),
-                  eps=float(cfg.epsilon), n_rem=float(n_rem), dark=dark)
+                  rec_out=int(bool(rec_out)), eps=float(cfg.epsilon),
+                  n_rem=float(n_rem), dark=dark)
     if N > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().tt_shade_scatter(
@@ -294,7 +314,9 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
         kc.raise_on_error("shade_scatter", err)
         LAUNCHES += 1
     if last:
-        return (out[0], out[1], out[2])
-    return dict(o=(out[0], out[1], out[2]), d=(out[3], out[4], out[5]),
-                time=state["time"], throughput=(out[6], out[7], out[8]),
-                acc=(out[9], out[10], out[11]), active=active_out)
+        res = (out[0], out[1], out[2])
+    else:
+        res = dict(o=(out[0], out[1], out[2]), d=(out[3], out[4], out[5]),
+                   time=state["time"], throughput=(out[6], out[7], out[8]),
+                   acc=(out[9], out[10], out[11]), active=active_out)
+    return (res, rec) if rec_out else res

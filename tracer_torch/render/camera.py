@@ -25,7 +25,9 @@ class Camera:
     aspect: torch.Tensor          # scalar
 
 
-def default_camera(aspect: float = 850.0 / 480.0, device="cpu") -> Camera:
+def default_camera(aspect: float = 850.0 / 480.0, device="cuda") -> Camera:
+    """The reference app's startup camera, on the card unless the caller
+    asks for the CPU."""
     f = dict(dtype=torch.float32, device=device)
     return Camera(
         position=torch.tensor([0.0, 0.0, 6.1], **f),

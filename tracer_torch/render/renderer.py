@@ -47,11 +47,12 @@ def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
     return integrator.trace(scene, cfg, o, d, time, keys, tables=tables)
 
 
-@torch.no_grad()
 def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
                   height: int, pixel_ids, nsamples: int, seed: int):
     """SUM of `nsamples` sample passes for `pixel_ids` [N] (divide by
-    nsamples for the mean radiance). Returns [N, 3] f32."""
+    nsamples for the mean radiance). Returns [N, 3] f32, differentiable
+    with respect to the scene's and the camera's tensors that require grad
+    (`integrator.trace`)."""
     integrator.check_scene(scene, cfg)
     tables = integrator.prepare(scene)
     acc = torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,

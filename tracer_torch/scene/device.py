@@ -146,10 +146,11 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def device_scene_from_numpy(fields: dict, meta: dict,
-                            device="cpu") -> DeviceScene:
+                            device="cuda") -> DeviceScene:
     """Build the port's DeviceScene from arrays given as numpy (for example
     a JAX `DeviceScene` as `{name: np.asarray(v)}` plus its static fields),
-    so both packages can run on identical tables."""
+    so both packages can run on identical tables. The tables go to the card
+    unless the caller asks for the CPU (`device="cpu"`)."""
     data = {k: _to_tensor(v, device) for k, v in fields.items()
             if k not in _META}
     return DeviceScene(**data, **{k: meta[k] for k in _META if k in meta})
@@ -366,8 +367,9 @@ def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
 
 def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
                   bvh_max_depth: int = 64, pad: int = 8,
-                  device="cpu") -> DeviceScene:
-    """Lower a SceneBuilder to a DeviceScene on `device`."""
+                  device="cuda") -> DeviceScene:
+    """Lower a SceneBuilder to a DeviceScene on `device` (the card unless
+    the caller asks for the CPU)."""
     if sb.meshes:
         raise NotImplementedError(
             "mesh scenes need the BVH traversal kernel, which is not ported "

@@ -13,9 +13,17 @@ the texel fold against their plain versions on one recorded 850x480
 sample, and the flagship protocol's fwd+bwd (`render_pixels` +
 `loss.backward()`, mat_diffuse, sph_center and tex_data trainable) on both
 boxes, with its launch counts and its 1-spp gradients held against the
-plain path. Every phase prints one line; any failure is an uncaught
-exception and a non-zero exit. The last two lines are a JSON record of the
-kernels and `{"ok": true, ...}`.
+plain path. Then lit mesh scenes: the BVH walk (B5) and the soft shadows
+(B6) against their plain versions on 408,000 lanes (flamingo_standin:
+`setup_flamingo` with a 52,900-triangle stand-in mesh; the flamingo_pond
+layout with stand-ins of 11,236 and 52,900 triangles; random_spheres,
+whose shadows test tables only), B1 and B2 with mesh and light inputs,
+and the renders of flamingo_standin (16 spp) and random_spheres (4 spp)
+through `render`, with and without the sorted ray queues, their launch
+counts and their 1-spp radiance held against the plain path. Every phase
+prints one line; any failure is an uncaught exception and a non-zero
+exit. The last two lines are a JSON record of the kernels and
+`{"ok": true, ...}`.
 
 Tolerances: discrete outputs (winning primitive, material, texel indices,
 active flags) must match exactly; forward float outputs within atol=2e-5,
@@ -26,7 +34,8 @@ with --fmad=false; cosf/sinf may differ by an ulp). The fold and the
 gradients: f32 summation order (the kernel sums a texel's run in sorted
 order, the plain scatter in stream order; the one-hot matmuls sum in
 cuBLAS's order): rtol 1e-5 / atol 1e-5 * max|plain| for the fold, max
-relative error 1e-4 for the 1-spp gradients.
+relative error 1e-4 for the 1-spp gradients. B5's (t, tri) and B6's
+factors must match exactly.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -53,12 +63,15 @@ from tracer_torch.kernels import fold as kfold  # noqa: E402
 from tracer_torch.kernels import intersect as kintersect  # noqa: E402
 from tracer_torch.kernels import shade as kshade  # noqa: E402
 from tracer_torch.kernels import shade_bwd as kbwd  # noqa: E402
+from tracer_torch.kernels import shadow as kshadow  # noqa: E402
+from tracer_torch.kernels import traverse as ktraverse  # noqa: E402
 from tracer_torch.render import integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
 from tracer_torch.render.camera import default_camera  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
-from tracer_torch.testing import FULL, fill_cornell_textures  # noqa: E402
+from tracer_torch.testing import (  # noqa: E402
+    FULL, fill_cornell_textures, flamingo_pond_standin, flamingo_standin)
 
 W, H, SPP, BOUNCES = 850, 480, 16, 6
 PAIR_SPP = 2
@@ -67,6 +80,13 @@ BWD_RTOL = 2e-5     # bounce adjoint vs plain, relative to max(1, |plain|)
 FOLD_RTOL = 1e-5    # fold vs plain (f32 summation order)
 GRAD_RTOL = 1e-4    # 1-spp protocol gradients vs the plain path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM peak f32 rate outside the tensor cores
+# f32 operations of the plain walk's expressions: a node visit (the slab
+# test: 6 sub, 6 mul, 12 min/max, 2 min/max, 1 compare) and a triangle
+# test (dot products, the division, the point, the barycentrics, the
+# compares); a sphere or quad test of the shadow pass; a shadow sample ray
+# (jitter draw, offset, length, normalisation, origin) with its hashes
+OPS_VISIT, OPS_TRI, OPS_TABLE, OPS_SAMPLE = 27, 45, 30, 60
 DEV = torch.device("cuda", 0)
 DISCRETE = ("j", "tid", "mid", "row", "sub", "idx_t", "idx_n", "active")
 TRAINABLE = ("mat_diffuse", "sph_center", "tex_data")
@@ -122,10 +142,49 @@ def nbytes(*ts):
     return out
 
 
+def lane_bytes(live, *per_lane):
+    """Bytes of inputs that a kernel reads only on live lanes: the live
+    mask for every lane, the per-lane tensors ([..., N], tuples flattened)
+    for the live lanes only."""
+    return nbytes(live) + int(live.sum()) * nbytes(*per_lane) // live.numel()
+
+
+def tree_bytes(scene, tree, cnt):
+    """The tree bytes a walk must read, from the plain walk's marks
+    (`primitives.skip_walk`): the used columns of every node any lane read
+    (lo, hi: 6 f32; leaf row, skip: 2 i32) and of every real triangle in a
+    leaf any lane tested (18 of its slot's 32 f32)."""
+    if "nodes_seen" not in cnt:
+        return 0
+    _, nodes_i, leaf = tree
+    rows = nodes_i[cnt["leaves_seen"], 0].long()
+    tids = leaf[rows].reshape(-1, scene.leaf_width, ktraverse.TRI_COLS)[..., 17]
+    real = int((tids != float(scene.tri_a.shape[0] - 1)).sum())
+    return 32 * int(cnt["nodes_seen"].sum()) + 72 * real
+
+
 def bound_ms(nb):
     """The least time the card could take to move `nb` bytes (every
     input read once, every output written once), in ms."""
     return nb / HBM_BYTES_PER_S * 1e3
+
+
+def bound2(nb, ops):
+    """(bound_ms, bound_by): the larger of the byte time and the
+    operation time at the card's peak f32 rate."""
+    b, o = bound_ms(nb), ops / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+class Rec(NamedTuple):
+    """One kernel's comparison and timing, a candidate row of the
+    `kernels` record."""
+    err: float
+    ms: float
+    plain_ms: float | None
+    bound_ms: float | None
+    bound_by: str = "bytes"
+    library_ms: float | None = None
 
 
 def flat(rec):
@@ -170,18 +229,26 @@ def kernel_phase(label, scene, stats):
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
     o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
     tables = integrator.prepare(scene)
-    itab, stab = tables
+    itab, stab = tables.intersect, tables.shade
     use_pair = scene.pair_pack.shape[0] > 1
     cfgs = {c: RenderConfig(compat=c) for c in ("reference", "physical")}
     state = integrator._init_state(o, d, tm)
     winners = set()
+    Nm = scene.mesh_mat.shape[0]
     for b in (0, 1):
         bkeys = rng.salted(keys, b)
         args = (scene, state["o"], state["d"], state["time"],
                 state["active"], 1e-5, int(use_pair))
+        mesh_in = {}
+        if Nm > 0:
+            t_raw, tri_raw = ktraverse.mesh_closest_hits(
+                scene, state["o"], state["d"], state["active"],
+                tables=tables.tree)
+            mesh_in = dict(t_mesh=t_raw, tri_mesh=tri_raw, mesh=tables.mesh)
 
         def fh(mode):
-            return kintersect.first_hits(*args, kernels=mode, tables=itab)
+            return kintersect.first_hits(*args, kernels=mode, tables=itab,
+                                         **mesh_in)
 
         k1 = fh("auto")
         k1p = fh("off")
@@ -191,23 +258,31 @@ def kernel_phase(label, scene, stats):
         winners |= set(k1p["j"][live].unique().tolist())
         ms = timed(lambda: fh("auto"), 20)
         pms = timed(lambda: fh("off"), 3)
-        bms = bound_ms(nbytes(args[1:5], itab, k1))
+        bms = bound_ms(lane_bytes(live, args[1:4], mesh_in.get("t_mesh"),
+                                  mesh_in.get("tri_mesh"))
+                       + nbytes(itab, k1, mesh_in.get("mesh")))
         say("B1", scene=label, bounce=b, rays=int(live.sum()),
+            meshes=Nm, mesh_winners=int((k1p["j"][live] >= scene.sph_center
+                                         .shape[0] + scene.quad_v0.shape[0])
+                                        .sum()),
             mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
             plain_ms=f"{pms:.4f}",
             device_ms=device_ms(lambda: fh("auto"), 20, "first_hits"),
             bound_ms=f"{bms:.4f}")
-        stats["first_hits"].append((err, ms, pms, bms))
+        stats["first_hits"].append(Rec(err, ms, pms, bms))
         nxt = None
         for compat, last in (("reference", False), ("reference", True),
                              ("physical", False)):
             cfg = cfgs[compat]
+            shadows = integrator._shadow_factors_all(
+                scene, cfg, k1p["p"], state["time"], bkeys,
+                live & (k1p["j"] >= 0), tables)
 
             def sh(mode):
                 return kshade.shade_scatter(
                     scene, cfg, state, bkeys, k1p, BOUNCES - b,
-                    use_pair=use_pair, last=last, kernels=mode,
-                    tables=stab)
+                    shadows=shadows, use_pair=use_pair, last=last,
+                    kernels=mode, tables=stab, mesh=tables.mesh)
 
             got, want = sh("auto"), sh("off")
             if last:
@@ -218,13 +293,20 @@ def kernel_phase(label, scene, stats):
                   mism, err)
             ms = timed(lambda: sh("auto"), 20)
             pms = timed(lambda: sh("off"), 3)
-            bms = bound_ms(shade_bytes(state, k1p, use_pair, last, got))
+            # mesh winners also read tid and their 24-float pack row
+            mesh_rows = 100 * int((live & (k1p["j"] >= scene.sph_center
+                                           .shape[0] + scene.quad_v0.shape[0]))
+                                  .sum())
+            bms = bound_ms(shade_bytes(state, use_pair, last, got,
+                                       scene.light_pos.shape[0])
+                           + mesh_rows)
             say("B2", scene=label, bounce=b, compat=compat, last=last,
+                meshes=Nm, lights=scene.light_pos.shape[0],
                 mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
                 plain_ms=f"{pms:.4f}",
                 device_ms=device_ms(lambda: sh("auto"), 20, "shade_scatter"),
                 bound_ms=f"{bms:.4f}")
-            stats["shade_scatter"].append((err, ms, pms, bms))
+            stats["shade_scatter"].append(Rec(err, ms, pms, bms))
             if compat == "reference" and not last:
                 nxt = want
         state = nxt
@@ -235,19 +317,21 @@ def kernel_phase(label, scene, stats):
         of=len(prims))
 
 
-def shade_bytes(state, k1, use_pair, last, out):
-    """What B2 must read and write per call in this slice (no lights):
-    the state and hit fields its outputs depend on, and the outputs. The
-    last bounce needs only d.y (sky), throughput, acc, active, j, mid and
-    u, v; the others add o, d.x, d.z, the key, p and n; the pair atlas adds
-    row, sub, ptex, pnm, the two texel words and the tangent frame."""
-    one = nbytes(state["d"][0])          # one f32 / i32 row
-    rows = 3 + 3 + 1 + 1 + 2             # acc, throughput, d.y, j, mid, u v
-    if not last:
-        rows += 3 + 2 + 1 + 3 + 3        # o, d.x d.z, key, p, n
+def shade_bytes(state, use_pair, last, out, n_lights=0):
+    """What B2 must read and write per call: the state and hit fields its
+    outputs depend on, and the outputs. Every lane reads its active flag
+    and acc, and before the last bounce o, d and throughput (a lane that
+    is not active passes them on). An active lane also reads j, mid, u, v
+    and its shadow factors; on the last bounce throughput and d.y (sky),
+    before it the key, p and n; with the pair atlas row, sub, ptex, pnm,
+    the two texel words and the tangent frame. Every f32 / i32 is 4 B."""
+    active = state["active"]
+    every = 3 + (0 if last else 3 + 3 + 3)
+    live = 1 + 1 + 2 + n_lights + (3 + 1 if last else 1 + 3 + 3)
     if use_pair:
-        rows += 4 + 2 + 6                # row sub ptex pnm, words, tan bitan
-    return rows * one + nbytes(state["active"]) + nbytes(out)
+        live += 4 + 2 + 6
+    return (nbytes(active) + 4 * (active.numel() * every
+                                  + int(active.sum()) * live) + nbytes(out))
 
 
 def record_phase(scene, stats):
@@ -257,7 +341,8 @@ def record_phase(scene, stats):
     cam = default_camera(W / H, device=DEV)
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
     o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
-    itab, stab = integrator.prepare(scene)
+    tables = integrator.prepare(scene)
+    itab, stab = tables.intersect, tables.shade
     cfg = RenderConfig()
     state = integrator._init_state(o, d, tm)
     for b in (0, 1):
@@ -279,9 +364,10 @@ def record_phase(scene, stats):
             rays=int(live.sum()), mismatches=mism, max_abs_err=f"{err:.3g}",
             ms=f"{ms:.4f}", plain_ms=f"{timed(lambda: fh('off'), 3):.4f}",
             device_ms=device_ms(lambda: fh("auto"), 20, "first_hits"),
-            bound_ms=f"{bound_ms(nbytes(state['o'], state['d'], tm, live,
-                                        itab, k1)):.4f}")
-        stats["first_hits"].append((err, ms, None, None))
+            bound_ms=f"{bound_ms(lane_bytes(live, state['o'], state['d'],
+                                            state['time'])
+                                 + nbytes(itab, k1)):.4f}")
+        stats["first_hits"].append(Rec(err, ms, None, None))
 
         def sh(mode):
             return kshade.shade_scatter(
@@ -292,13 +378,13 @@ def record_phase(scene, stats):
         mism, err = compare(dict(got, rec=grec), dict(want, rec=wrec))
         check(f"shade_scatter rec_out b{b}", mism, err)
         ms = timed(lambda: sh("auto"), 20)
-        bms = bound_ms(shade_bytes(state, k1p, True, False, (got, grec)))
+        bms = bound_ms(shade_bytes(state, True, False, (got, grec)))
         say("B2-rec", scene="cornell_textured", bounce=b, rec_out=True,
             mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
             plain_ms=f"{timed(lambda: sh('off'), 3):.4f}",
             device_ms=device_ms(lambda: sh("auto"), 20, "shade_scatter"),
             bound_ms=f"{bms:.4f}")
-        stats["shade_scatter"].append((err, ms, None, None))
+        stats["shade_scatter"].append(Rec(err, ms, None, None))
         state = want
 
 
@@ -373,7 +459,7 @@ def bwd_phase(label, scene, stats):
                     lambda: kbwd.bounce_bwd_tiles(*pargs, **kw), 20,
                     "bounce_bwd"),
                 bound_ms=f"{bms:.4f}")
-            stats["bounce_bwd"].append((abs_err, ms, pms, bms))
+            stats["bounce_bwd"].append(Rec(abs_err, ms, pms, bms))
 
 
 def bwd_bytes(n_active, n, last, has_pair, tables):
@@ -462,7 +548,7 @@ def fold_phase(scene, stats):
         bound_ms=f"{bms:.4f}", skewed_ms=f"{hms:.4f}",
         skewed_device_ms=device_ms(lambda: run("auto", hot), 5,
                                    "sorted_fold"))
-    stats["sorted_fold"].append((err, ms, pms, bms, lms))
+    stats["sorted_fold"].append(Rec(err, ms, pms, bms, library_ms=lms))
 
 
 def protocol_grads(scene, cam, cfg, spp, trainable):
@@ -477,9 +563,18 @@ def protocol_grads(scene, cam, cfg, spp, trainable):
     return loss.detach(), {k: p.grad for k, p in params.items()}
 
 
+KERNEL_MODULES = dict(first_hits=kintersect, shade_scatter=kshade,
+                      bounce_bwd=kbwd, sorted_fold=kfold,
+                      traverse=ktraverse, shadow=kshadow)
+
+
 def reset_launches():
-    for m in (kintersect, kshade, kbwd, kfold):
+    for m in KERNEL_MODULES.values():
         m.LAUNCHES = 0
+
+
+def launch_counts(*names):
+    return {k: KERNEL_MODULES[k].LAUNCHES for k in names}
 
 
 def protocol_phase(label, sb, spp, trainable=TRAINABLE):
@@ -500,9 +595,8 @@ def protocol_phase(label, sb, spp, trainable=TRAINABLE):
     loss, grads = protocol_grads(scene, cam, cfg, spp, trainable)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = {"first_hits": kintersect.LAUNCHES,
-                "shade_scatter": kshade.LAUNCHES,
-                "bounce_bwd": kbwd.LAUNCHES, "sorted_fold": kfold.LAUNCHES}
+    launches = launch_counts("first_hits", "shade_scatter", "bounce_bwd",
+                             "sorted_fold")
     folds = spp if ("tex_data" in trainable
                     and scene.tex_data.shape[0] > 1) else 0
     expect = {"first_hits": spp * BOUNCES, "shade_scatter": spp * BOUNCES,
@@ -540,7 +634,7 @@ def protocol_phase(label, sb, spp, trainable=TRAINABLE):
     return launches
 
 
-def profile_phase(label, sb, trainable=TRAINABLE):
+def profile_phase(label, sb, trainable=TRAINABLE, ray_sort="auto"):
     """Where the time of one 16-spp protocol fwd+bwd goes (or, with no
     trainable field, of one 16-spp forward `render_pixels`): torch.profiler
     over the step (its wall includes the profiler's own overhead), device
@@ -549,7 +643,7 @@ def profile_phase(label, sb, trainable=TRAINABLE):
     from torch.profiler import ProfilerActivity, profile
     scene = compile_scene(sb, device=DEV)
     cam = default_camera(W / H, device=DEV)
-    cfg = RenderConfig(max_bounces=BOUNCES)
+    cfg = RenderConfig(max_bounces=BOUNCES, ray_sort=ray_sort)
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
 
     def step():
@@ -570,7 +664,7 @@ def profile_phase(label, sb, trainable=TRAINABLE):
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
-    say("profile", scene=label, spp=SPP,
+    say("profile", scene=label, spp=SPP, ray_sort=ray_sort,
         step="+".join(trainable) if trainable else "forward",
         wall_ms=f"{wall_ms:.1f}", device_busy_ms=f"{busy_ms:.1f}",
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}",
@@ -579,50 +673,219 @@ def profile_phase(label, sb, trainable=TRAINABLE):
               e.count) for e in top])
 
 
-def render_phase(label, sb, spp):
-    """The render through the normal entry point, with launch counts,
-    then the 1-spp radiance against the plain path on the card."""
+def render_phase(label, sb, spp, plain_frame=True):
+    """The render through the normal entry point, with launch counts, the
+    frame again without the sorted ray queues (mesh scenes), then the
+    1-spp radiance against the plain path on the card. `plain_frame`: also
+    time the plain path's whole frame (the walk's and the shadows' plain
+    versions make that minutes long on the mesh scenes, whose plain time
+    is given at 1 spp instead)."""
     scene = compile_scene(sb, device=DEV)
     cam = default_camera(W / H, device=DEV)
     cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
     renderer.render(scene, cam, cfg, nsamples=1)  # warm-up
     torch.cuda.synchronize()
-    kintersect.LAUNCHES = 0
-    kshade.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     img = renderer.render(scene, cam, cfg)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    launches = {"first_hits": kintersect.LAUNCHES,
-                "shade_scatter": kshade.LAUNCHES}
-    for name, n in launches.items():
-        if n != spp * BOUNCES:
-            raise AssertionError(f"{label}: {name} launched {n} times, "
-                                 f"expected {spp * BOUNCES}")
+    launches = launch_counts("first_hits", "shade_scatter", "traverse",
+                             "shadow")
+    meshes = scene.mesh_mat.shape[0] > 0
+    expect = dict(first_hits=spp * BOUNCES, shade_scatter=spp * BOUNCES,
+                  traverse=spp * BOUNCES if meshes else 0,
+                  shadow=spp * BOUNCES if scene.light_pos.shape[0] else 0)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
     if img.shape != (H, W, 3) or not bool(
             torch.isfinite(torch.from_numpy(img)).all()):
         raise AssertionError(f"{label}: bad image {img.shape}")
-    cfg_off = RenderConfig(nsamples=spp, width=W, height=H,
-                           max_bounces=BOUNCES, kernels="off")
-    t0 = time.perf_counter()
-    renderer.render(scene, cam, cfg_off)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    extra = {}
+    if meshes:
+        # sorted and unsorted frames in turns: unsorted, sorted, unsorted
+        times = {"auto": [frame_s], "off": []}
+        for sort in ("off", "auto", "off"):
+            t0 = time.perf_counter()
+            renderer.render(scene, cam, dataclasses.replace(cfg,
+                                                            ray_sort=sort))
+            torch.cuda.synchronize()
+            times[sort].append(time.perf_counter() - t0)
+        extra["frames_sorted_s"] = [f"{t:.4f}" for t in times["auto"]]
+        extra["frames_unsorted_s"] = [f"{t:.4f}" for t in times["off"]]
+    cfg_off = dataclasses.replace(cfg, kernels="off")
+    if plain_frame:
+        t0 = time.perf_counter()
+        renderer.render(scene, cam, cfg_off)
+        torch.cuda.synchronize()
+        extra["plain_frame_s"] = f"{time.perf_counter() - t0:.4f}"
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
     rk = renderer.render_pixels(scene, cam, cfg, W, H, pid, 1, cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     rp = renderer.render_pixels(scene, cam, cfg_off, W, H, pid, 1, cfg.seed)
+    torch.cuda.synchronize()
+    extra["plain_1spp_s"] = f"{time.perf_counter() - t0:.4f}"
     err = float((rk - rp).abs().max())
     check(f"render {label} 1-spp radiance", 0, err)
     out = os.path.join(tempfile.mkdtemp(), "rendu.ppm")
     write_ppm(out, img)
     say("render", scene=label, size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
-        frame_s=f"{frame_s:.4f}", plain_frame_s=f"{plain_s:.4f}",
+        frame_s=f"{frame_s:.4f}", **extra,
         radiance_max_abs_err=f"{err:.3g}", mean=f"{img.mean():.6f}",
         launches=launches, ppm=out)
     return launches
 
 
+def lanes_phase_inputs(scene, tables):
+    """The inputs of B5 and B6 at the flagship shapes: the camera rays of
+    one sample (bounce 0) and the rays the kernel path scatters from them
+    (bounce 1), each with its first-hit record and keys."""
+    cam = default_camera(W / H, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
+    cfg = RenderConfig()
+    state = integrator._init_state(o, d, tm)
+    out = []
+    for b in (0, 1):
+        t_raw = tri_raw = None
+        if scene.mesh_mat.shape[0] > 0:
+            t_raw, tri_raw = ktraverse.mesh_closest_hits(
+                scene, state["o"], state["d"], state["active"],
+                tables=tables.tree)
+        k1 = kintersect.first_hits(
+            scene, state["o"], state["d"], state["time"], state["active"],
+            tables=tables.intersect, t_mesh=t_raw, tri_mesh=tri_raw,
+            mesh=tables.mesh)
+        out.append((b, state, k1, rng.salted(keys, b)))
+        state, _ = integrator._bounce_core(scene, cfg, keys, state, b,
+                                           tables=tables)
+    return out
+
+
+def walk_phase(label, scene, stats):
+    """B5 against its plain version on every lane of one sample's bounce-0
+    and bounce-1 rays: (t, tri) must match exactly. The plain walk counts
+    the node visits and triangle tests that the bound is computed from."""
+    tables = integrator.prepare(scene)
+    Nm = scene.mesh_mat.shape[0]
+    for b, state, _, _ in lanes_phase_inputs(scene, tables):
+        o, d, live = state["o"], state["d"], state["active"]
+
+        def run(mode):
+            return ktraverse.mesh_closest_hits(scene, o, d, live,
+                                               kernels=mode,
+                                               tables=tables.tree)
+
+        t_k, tri_k = run("auto")
+        cnt = {}
+        t_p, tri_p = ktraverse.mesh_closest_hits_plain(scene, o, d, live,
+                                                       tables.tree, cnt)
+        # the plain version's time, without the counting
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run("off")
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        mism = int(((t_k != t_p) | (tri_k != tri_p)).sum())
+        if mism:
+            raise AssertionError(f"traverse {label} b{b}: {mism} of "
+                                 f"{t_k.numel()} (t, tri) mismatches")
+        n_live = int(live.sum())
+        ms = timed(lambda: run("auto"), 10)
+        nb = (lane_bytes(live, o, d) + nbytes(t_k, tri_k)
+              + tree_bytes(scene, tables.tree, cnt))
+        ops = cnt.get("visits", 0) * OPS_VISIT + cnt.get("tests", 0) * OPS_TRI
+        bms, by = bound2(nb, ops)
+        say("B5", scene=label, bounce=b, lanes=o[0].numel(), live=n_live,
+            meshes=Nm, tree_nodes=scene.bvh_lo.shape[0],
+            triangles=scene.tri_a.shape[0] - 1, mismatches=mism,
+            hits=int((tri_p >= 0).sum()),
+            visits_per_ray=f"{cnt.get('visits', 0) / max(n_live, 1):.2f}",
+            max_visits=cnt.get("max_visits", 0),
+            tests_per_ray=f"{cnt.get('tests', 0) / max(n_live, 1):.2f}",
+            nodes_read=int(cnt["nodes_seen"].sum()),
+            leaves_tested=int(cnt["leaves_seen"].sum()),
+            ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+            device_ms=device_ms(lambda: run("auto"), 10, "traverse"),
+            bound_ms=f"{bms:.4f}", bound_by=by,
+            byte_bound_ms=f"{bound_ms(nb):.4f}")
+        stats["traverse"].append(Rec(0.0, ms, pms, bms, by))
+
+
+def shadow_phase(label, scene, stats):
+    """B6 against its plain version at the live hit points of one sample's
+    bounce-0 and bounce-1 rays, on all 408,000 lanes, both compat modes:
+    the factors must match exactly. The plain megabatch counts the shadow
+    rays, table tests, node visits and triangle tests that the bound is
+    computed from."""
+    tables = integrator.prepare(scene)
+    for b, state, k1, bkeys in lanes_phase_inputs(scene, tables):
+        live = state["active"] & (k1["j"] >= 0)
+        p, tm = k1["p"], state["time"]
+        for compat in ("reference", "physical"):
+            cfg = RenderConfig(compat=compat)
+
+            def run(mode):
+                return kshadow.shadow_factors(
+                    scene, cfg, p, tm, bkeys, cfg.epsilon, live,
+                    kernels=mode, tables=tables.shadow, tree=tables.tree)
+
+            got = run("auto")
+            cnt = {}
+            want = kshadow.shadow_factors_plain(
+                scene, cfg, p, tm, bkeys, cfg.epsilon, live, tables.shadow,
+                tables.tree, cnt)
+            # the plain version's time, without the counting
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run("off")
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            mism = int((got != want).sum())
+            if mism:
+                raise AssertionError(f"shadow {label} b{b} {compat}: {mism}"
+                                     f" of {want.numel()} factors differ")
+            ms = timed(lambda: run("auto"), 5)
+            nb = (lane_bytes(live, p, tm, bkeys.to(torch.int32))
+                  + nbytes(got, tables.shadow)
+                  + tree_bytes(scene, tables.tree, cnt))
+            ops = (cnt.get("rays", 0) * OPS_SAMPLE
+                   + cnt.get("table_tests", 0) * OPS_TABLE
+                   + cnt.get("visits", 0) * OPS_VISIT
+                   + cnt.get("tests", 0) * OPS_TRI)
+            bms, by = bound2(nb, ops)
+            rays = max(cnt.get("rays", 0), 1)
+            # a probe of what packing the live lanes together costs (the
+            # sorted dispatch of mesh scenes does): the same lanes with
+            # the live ones first
+            perm = torch.argsort((~live).to(torch.int32), stable=True)
+            pargs = (tuple(c[perm] for c in p), tm[perm], bkeys[perm],
+                     cfg.epsilon, live[perm])
+            say("B6", scene=label, bounce=b, compat=compat,
+                lanes=live.numel(), live=int(live.sum()),
+                lights=scene.light_pos.shape[0],
+                meshes=scene.mesh_mat.shape[0], mismatches=mism,
+                lit_mean=f"{float(got[:, live].mean()):.4f}",
+                shadow_rays=cnt.get("rays", 0),
+                table_tests_per_ray=f"{cnt.get('table_tests', 0) / rays:.2f}",
+                visits_per_ray=f"{cnt.get('visits', 0) / rays:.2f}",
+                max_visits=cnt.get("max_visits", 0),
+                tests_per_ray=f"{cnt.get('tests', 0) / rays:.2f}",
+                ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+                device_ms=device_ms(lambda: run("auto"), 5, "shadow"),
+                live_first_device_ms=device_ms(
+                    lambda: kshadow.shadow_factors(
+                        scene, cfg, *pargs, tables=tables.shadow,
+                        tree=tables.tree), 5, "shadow"),
+                bound_ms=f"{bms:.4f}", bound_by=by,
+                byte_bound_ms=f"{bound_ms(nb):.4f}")
+            stats["shadow"].append(Rec(0.0, ms, pms, bms, by))
+
+
 def main():
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -639,27 +902,25 @@ def main():
     say("build", seconds=f"{build_s:.2f}",
         nvcc_seconds=_build.BUILD_SECONDS, ptxas=ptxas)
 
-    stats = {"first_hits": [], "shade_scatter": [], "bounce_bwd": [],
-             "sorted_fold": []}
+    stats = {k: [] for k in KERNEL_MODULES}
+    launches = {}
     flat_sb = zoo.setup_cornell_box(W / H)
     pair_sb = fill_cornell_textures(zoo.setup_cornell_box(W / H), FULL)
     flat_scene = compile_scene(flat_sb, device=DEV)
-    kernel_phase("cornell", flat_scene, stats)
     pair_scene = compile_scene(pair_sb, device=DEV)
     if not pair_scene.pair_mode or pair_scene.pair_pack.shape[0] <= 1:
         raise AssertionError("textured Cornell did not build a pair atlas")
+    kernel_phase("cornell", flat_scene, stats)
     kernel_phase("cornell_textured", pair_scene, stats)
-
     render_phase("cornell", flat_sb, SPP)
     render_phase("cornell_textured", pair_sb, PAIR_SPP)
 
-    # the backward
     tf32_phase()
     record_phase(pair_scene, stats)
     bwd_phase("cornell", flat_scene, stats)
     bwd_phase("cornell_textured", pair_scene, stats)
     fold_phase(pair_scene, stats)
-    launches = protocol_phase("cornell", flat_sb, SPP)
+    launches.update(protocol_phase("cornell", flat_sb, SPP))
     launches_tex = protocol_phase("cornell_textured", pair_sb, SPP)
     protocol_phase("cornell_textured", pair_sb, SPP,
                    trainable=("mat_diffuse", "sph_center"))
@@ -668,10 +929,45 @@ def main():
     profile_phase("cornell", flat_sb)
     profile_phase("cornell_textured", pair_sb)
 
+    t0 = time.perf_counter()
+    flam_sb = flamingo_standin(zoo)
+    flam = compile_scene(flam_sb, device=DEV)
+    pond = compile_scene(flamingo_pond_standin(zoo), device=DEV)
+    rs_sb = zoo.setup_random_spheres()
+    rsph = compile_scene(rs_sb, device=DEV)
+    say("mesh_scenes", build_s=f"{time.perf_counter() - t0:.2f}",
+        flamingo_standin=f"{flam.tri_a.shape[0] - 1} tris, "
+        f"{flam.bvh_lo.shape[0]} nodes",
+        flamingo_pond_standin=f"{pond.tri_a.shape[0] - 1} tris, "
+        f"{pond.bvh_lo.shape[0]} nodes, {len(pond.mesh_root)} meshes")
+    walk_phase("flamingo_standin", flam, stats)
+    walk_phase("flamingo_pond_standin", pond, stats)
+    shadow_phase("random_spheres", rsph, stats)
+    shadow_phase("flamingo_standin", flam, stats)
+    shadow_phase("flamingo_pond_standin", pond, stats)
+    # a half-transparent mesh: the shadow kernel skips the walk of a
+    # sample whose draw for the mesh is at most its transparency
+    transp = flam.mat_transparency.clone()
+    transp[flam.mesh_mat.long()] = 0.5
+    shadow_phase("flamingo_standin_transparent_mesh",
+                 dataclasses.replace(flam, mat_transparency=transp), stats)
+    kernel_phase("flamingo_standin", flam, stats)
+    kernel_phase("flamingo_pond_standin", pond, stats)
+    mesh_launches = render_phase("flamingo_standin", flam_sb, SPP,
+                                 plain_frame=False)
+    render_phase("random_spheres", rs_sb, 4, plain_frame=False)
+    launches.update(traverse=mesh_launches["traverse"],
+                    shadow=mesh_launches["shadow"])
+    profile_phase("flamingo_standin", flam_sb, trainable=())
+    profile_phase("flamingo_standin", flam_sb, trainable=(),
+                  ray_sort="off")
+
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
-    # reference, B3 cornell reference bounce 0, B4 the textured stream.
-    # Launch counts: the flat box's 16-spp protocol run (B4: the
-    # textured box's, the flat box has no atlas to fold onto)
+    # reference, B3 cornell reference bounce 0, B4 the textured stream,
+    # B5 flamingo_standin bounce 1, B6 flamingo_standin bounce 0
+    # reference. Launch counts: the flat box's 16-spp protocol run (B4:
+    # the textured box's, the flat box has no atlas to fold onto; B5 and
+    # B6: the 16-spp flamingo_standin render)
     rows = []
     for kname, src, tpu, pick in (
             ("first_hits", "tracer_torch/kernels/csrc/first_hits.cu",
@@ -681,16 +977,20 @@ def main():
             ("bounce_bwd", "tracer_torch/kernels/csrc/bounce_bwd.cu",
              "tracer/kernels/shade_bwd.py:97", 1),
             ("sorted_fold", "tracer_torch/kernels/csrc/sorted_fold.cu",
-             "tracer/kernels/fold.py:120", 0)):
+             "tracer/kernels/fold.py:120", 0),
+            ("traverse", "tracer_torch/kernels/csrc/traverse.cu",
+             "tracer/kernels/traverse.py:209", 1),
+            ("shadow", "tracer_torch/kernels/csrc/shadow.cu",
+             "tracer/kernels/shadow.py:466", 4)):
         recs = stats[kname]
-        err = max(r[0] for r in recs)
-        ms, pms, bms = recs[pick][1:4]
+        rec = recs[pick]
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": launches[kname],
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": "bytes",
-                     "library_ms": recs[pick][4] if kname == "sorted_fold"
-                     else None})
+                     "max_abs_err": max(r.err for r in recs), "ms": rec.ms,
+                     "plain_ms": rec.plain_ms, "bound_ms": rec.bound_ms,
+                     "bound_by": rec.bound_by,
+                     "library_ms": rec.library_ms})
+    say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

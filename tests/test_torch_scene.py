@@ -17,7 +17,8 @@ from tracer_torch.io import ppm as tppm
 from tracer_torch.scene import builder as tbuilder
 from tracer_torch.scene import device as tdevice
 from tracer_torch.scenes import zoo as tzoo
-from tracer_torch.testing import fill_cornell_textures
+from tracer_torch.testing import (fill_cornell_textures,
+                                  flamingo_pond_standin, flamingo_standin)
 
 META = tdevice._META
 
@@ -69,6 +70,11 @@ def _scenes():
         "cornell_textured": lambda z: fill_cornell_textures(
             z.setup_cornell_box(850 / 480)),
         "single_sphere": lambda z: z.setup_single_sphere(),
+        # mesh scenes: a stand-in mesh in the flamingo's place, and stand-ins
+        # for both meshes of flamingo_pond (two BVHs, node and tri offsets)
+        "flamingo_standin": lambda z: flamingo_standin(z, 2_000),
+        "flamingo_pond_standin": lambda z: flamingo_pond_standin(
+            z, 700, 1_500),
     }
 
 
@@ -86,8 +92,12 @@ def _assert_scene_equal(js, ts):
 @pytest.mark.parametrize("name", sorted(_scenes()))
 def test_compile_scene_matches_jax(name):
     make = _scenes()[name]
-    js = jcompile(make(jzoo))
-    ts = tdevice.compile_scene(make(tzoo), device="cpu")
+    # the numpy BVH builder: test_torch_accel.py holds the native ones
+    js = jcompile(make(jzoo), use_native=False)
+    ts = tdevice.compile_scene(make(tzoo), use_native=False, device="cpu")
+    if "standin" in name:
+        assert len(ts.mesh_root) == (2 if "pond" in name else 1)
+        assert ts.light_pos.shape[0] > 0 and ts.tri_has_col.sum() > 0
     assert [f.name for f in dataclasses.fields(js)] == \
         [f.name for f in dataclasses.fields(ts)]
     _assert_scene_equal(js, ts)
@@ -112,11 +122,26 @@ def test_device_scene_from_numpy_round_trip():
 
 
 def test_meshes_are_not_ported_yet():
-    sb = tbuilder.SceneBuilder()
-    sb.add_mesh(tbuilder.MeshObject(
-        np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32)))
-    with pytest.raises(NotImplementedError, match="Mesh scenes"):
-        tdevice.compile_scene(sb, device="cpu")
+    """Meshes are ported now: a one-triangle mesh with face colors, built
+    with the numpy BVH builder and with the native one, gives the JAX
+    package's fields."""
+    from tracer.scene import builder as jbuilder
+    from tests.test_torch_accel import load_jax_native
+
+    def make(mod):
+        sb = mod.SceneBuilder()
+        sb.add_mesh(mod.MeshObject(
+            np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32),
+            face_colors=np.array([[0.2, 0.4, 0.6]], np.float32)))
+        return sb
+
+    load_jax_native()
+    for native in (False, True):
+        js = jcompile(make(jbuilder), use_native=native)
+        ts = tdevice.compile_scene(make(tbuilder), use_native=native,
+                                   device="cpu")
+        _assert_scene_equal(js, ts)
+        assert ts.mesh_root == (0,) and ts.mesh_end == (1,)
 
 
 @pytest.mark.parametrize("binary", [True, False])

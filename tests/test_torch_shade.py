@@ -91,7 +91,7 @@ def inputs(js, ts, seed=0):
 
 
 def jax_shade(js, cfg, state, keys, k1, n_rem, use_pair, shadows, last,
-              rec_out=False):
+              rec_out=False, mesh_detail=None):
     j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
     jstate = dict(o=tuple(map(j, state["o"])), d=tuple(map(j, state["d"])),
                   time=j(state["time"]),
@@ -112,12 +112,13 @@ def jax_shade(js, cfg, state, keys, k1, n_rem, use_pair, shadows, last,
     jsh = None if shadows is None else [j(x) for x in shadows]
 
     @jax.jit
-    def run(js, jstate, jkeys, jk1, mat_rows, rows, jsh):
+    def run(js, jstate, jkeys, jk1, mat_rows, rows, jsh, mesh_detail):
         return jshade.shade_scatter(js, cfg, jstate, jkeys, jk1, mat_rows,
                                     jnp.asarray(n_rem), shadows=jsh,
-                                    rows=rows, last=last, rec_out=rec_out)
+                                    rows=rows, last=last, rec_out=rec_out,
+                                    mesh_detail=mesh_detail)
 
-    return run(js, jstate, jkeys, jk1, mat_rows, rows, jsh)
+    return run(js, jstate, jkeys, jk1, mat_rows, rows, jsh, mesh_detail)
 
 
 @pytest.mark.parametrize("last", [False, True])
@@ -210,3 +211,73 @@ def test_scatter_streams_match_jax_rng():
     tv = trng.cube_unit_vector_lane_p(trng.salted(tk, trng.SCATTER_DIR), 0)
     for a in range(3):
         np.testing.assert_array_equal(np.asarray(jv[a]), tv[a].numpy())
+
+
+def mesh_scene():
+    """The lit scene with two meshes in view: a stand-in with vertex
+    colors and an emissive one without colors (mesh emission is zero, the
+    diffuse color the material's)."""
+    from tracer.scene.builder import MeshObject
+    from tracer_torch.testing import add_standin, standin_mesh
+    sb = lit_scene()
+    add_standin(sb, 400, 0, "pond_flamingo").translate((-5.2, 1.7, 1.))
+    v, t, _ = standin_mesh(200, 1)
+    m = MeshObject(v * 1.5 + np.float32([2.2, 0.3, 0.0]), t,
+                   material=Material(diffuse=(0.9, 0.5, 0.1), emissive=True,
+                                     light_intensity=5.0))
+    sb.add_mesh(m)
+    return sb
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("compat", ["reference", "physical"])
+def test_shade_scatter_meshes_matches_pallas(compat, last):
+    """Mesh winners: the port reads the mesh pack by tid (corner colors,
+    has_col) and zeroes their emission; the JAX kernel takes the mesh
+    detail as inputs (`integrator._mesh_detail_p`)."""
+    from tracer_torch.kernels import traverse as ttrav
+    # the numpy BVH builder: test_torch_accel.py holds the native ones
+    js = jcompile(mesh_scene(), use_native=False)
+    ts = port_scene(js)
+    rs = np.random.RandomState(1)
+    u = torch.from_numpy(rs.uniform(0.1, 0.9, N).astype(np.float32))
+    v = torch.from_numpy(rs.uniform(0.3, 0.8, N).astype(np.float32))
+    o, d = tcam.generate_rays(tcam.default_camera(1.0, device="cpu"), u, v)
+    f32 = lambda *sh, hi=1.0: torch.from_numpy(  # noqa: E731
+        rs.uniform(0.0, hi, sh).astype(np.float32))
+    state = dict(o=o, d=d, time=f32(N),
+                 throughput=tuple(f32(N) for _ in range(3)),
+                 acc=tuple(f32(N, hi=0.3) for _ in range(3)),
+                 active=torch.from_numpy(rs.rand(N) < 0.85))
+    keys = trng.salted(trng.ray_keys(1, torch.arange(N)), 0)
+    t_raw, tri_raw = ttrav.mesh_closest_hits(ts, o, d, state["active"])
+    k1 = tint.first_hits(ts, o, d, state["time"], state["active"],
+                         t_mesh=t_raw, tri_mesh=tri_raw)
+    shadows = f32(2, N)
+    j = k1["j"].numpy()
+    SQ = ts.sph_center.shape[0] + ts.quad_v0.shape[0]
+    mesh_lanes = (j >= SQ) & state["active"].numpy()
+    assert (j == SQ).sum() > 20 and (j == SQ + 1).sum() > 20
+    jj = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    md = jintegrator._mesh_detail_p(
+        js, tuple(map(jj, o)), tuple(map(jj, d)), jnp.maximum(jj(k1["j"]), 0),
+        jj(k1["tid"]))
+    want = jax_shade(js, JConfig(compat=compat), state, keys, k1, 3, False,
+                     shadows, last, mesh_detail=md)
+    got = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys, k1, 3,
+                               shadows=shadows, last=last)
+    if last:
+        want, got = dict(acc=want), dict(acc=got)
+    else:
+        np.testing.assert_array_equal(np.asarray(want["active"]),
+                                      got["active"].numpy())
+    for key in ("o", "d", "throughput", "acc"):
+        if key not in want:
+            continue
+        for a in range(3):
+            np.testing.assert_allclose(
+                got[key][a].numpy(), np.asarray(want[key][a]), atol=ATOL,
+                rtol=0, err_msg=f"{key}[{a}]")
+    if not last:   # vertex colors reach the throughput of mesh lanes
+        th = got["throughput"][0].numpy() / state["throughput"][0].numpy()
+        assert len(np.unique(np.round(th[mesh_lanes], 4))) > 10

@@ -6,9 +6,10 @@ keeps its own copy of the numpy host layer (scene builder, zoo, image and
 mesh I/O, RenderConfig) because importing anything under `tracer` imports
 JAX. Layout and names mirror `tracer/`: each module sits at the same path.
 
-The forward Cornell render runs on two hand-written CUDA kernels
-(`kernels/csrc/first_hits.cu`, `kernels/csrc/shade_scatter.cu`); on CPU
-tensors each kernel's plain PyTorch version runs instead.
+The forward render (Cornell, lit scenes, mesh scenes) and the Cornell
+backward run on six hand-written CUDA kernels (`kernels/csrc/*.cu`: first
+hit, shade+scatter, BVH walk, soft shadows, bounce adjoint, texel fold);
+on CPU tensors each kernel's plain PyTorch version runs instead.
 """
 
 from tracer_torch.core.config import RenderConfig

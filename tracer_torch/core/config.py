@@ -24,8 +24,9 @@ class RenderConfig:
 
     # Reference: src/Constants.h:15-16 (KD build params; our BVH
     # analogues — the reference uses 40 tris/leaf). 16 is the JAX
-    # package's default, chosen for its TPU packet walk; the port has no
-    # BVH yet and keeps the value for parity.
+    # package's default, chosen for its TPU packet walk; the port keeps it
+    # so that both packages build the same trees (the port's per-ray walk,
+    # kernels/csrc/bvh.cuh, stops a leaf at its first padding slot).
     bvh_leaf_size: int = 16
     bvh_max_depth: int = 64
 

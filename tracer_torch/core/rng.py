@@ -108,7 +108,7 @@ def uniform(keys, shape_suffix=(), minval=0.0, maxval=1.0):
     return u
 
 
-def _lane_uniform(keys, lane: int):
+def lane_uniform(keys, lane: int):
     """Flat lane `lane` of `uniform(keys, (K,))`: key _mix(keys, lane+2)."""
     return _to_unit_float(_pcg(_mix(keys, lane + 2)))
 
@@ -117,7 +117,7 @@ def cube_unit_vector_lane_p(keys, k: int):
     """Lane k of the reference's `random_unit_vector` (Functions.cpp:14-18),
     a normalized uniform cube sample, planar: lane keys _mix(keys, k*3+a+2).
     """
-    x, y, z = (-1.0 + 2.0 * _lane_uniform(keys, k * 3 + a) for a in range(3))
+    x, y, z = (-1.0 + 2.0 * lane_uniform(keys, k * 3 + a) for a in range(3))
     n = torch.clamp_min(torch.sqrt(x * x + y * y + z * z), 1e-20)
     return x / n, y / n, z / n
 
@@ -125,13 +125,25 @@ def cube_unit_vector_lane_p(keys, k: int):
 def sphere_unit_vector_lane_p(keys, k: int):
     """Lane k of the uniform-on-sphere sample (compat=physical), planar:
     lane keys _mix(keys, k*2+2) and _mix(keys, k*2+3)."""
-    u0 = _lane_uniform(keys, k * 2)
-    u1 = _lane_uniform(keys, k * 2 + 1)
+    u0 = lane_uniform(keys, k * 2)
+    u1 = lane_uniform(keys, k * 2 + 1)
     z = 1.0 - 2.0 * u0
     r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     # 2*pi rounds to f32 first, as the JAX weak-typed constant does
     phi = float(np.float32(2.0 * np.pi)) * u1
     return r * torch.cos(phi), r * torch.sin(phi), z
+
+
+def uniform_lane_key_p(keys, k: int):
+    """Column k of `lane_keys(keys, K)`: the key _mix(keys, k+2)."""
+    return _mix(keys, k + 2)
+
+
+def uniform_lanes_leading_p(keys, n: int):
+    """[n, N] uniforms whose row i equals column i of `uniform(keys, (n,))`
+    (rays in the trailing dimension)."""
+    lanes = torch.arange(n, dtype=torch.int64, device=keys.device)[:, None]
+    return _to_unit_float(_pcg(_mix(keys[None, :], lanes + 2)))
 
 
 def as_int32_bits(keys):

@@ -93,5 +93,9 @@ def library() -> ctypes.CDLL:
     lib.tt_bounce_bwd.restype = ctypes.c_int
     lib.tt_sorted_fold.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.tt_sorted_fold.restype = ctypes.c_int
+    lib.tt_traverse.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.tt_traverse.restype = ctypes.c_int
+    lib.tt_shadow.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.tt_shadow.restype = ctypes.c_int
     _LIB = lib
     return _LIB

@@ -1,5 +1,5 @@
-// First-hit kernel for Hopper: closest hit over all spheres and quads, then
-// the winner's hit detail, one thread per ray.
+// First-hit kernel for Hopper: closest hit over all spheres, quads and the
+// meshes' BVH hits, then the winner's hit detail, one thread per ray.
 //
 // Replaces the TPU kernel tracer/kernels/intersect.py::first_hits (Pallas;
 // body _kernel at intersect.py:122-379). The plain PyTorch version is
@@ -7,11 +7,17 @@
 // TPU kernel's expressions in the same order, and this file is built with
 // --fmad=false, so the card reproduces the plain version bit for bit.
 //
-// Bound: memory and launch latency. Per ray it reads 32 B and writes 84 B
-// (408,000 rays: about 47 MB per launch); the candidate loop is ~30 flops
-// per primitive against tables that sit in shared memory. Everything per
-// ray stays in registers; the winner's table row is read once after the
-// loop.
+// Bound: memory and launch latency. Per ray it reads 32 B (+ 8 B per mesh)
+// and writes 84 B (408,000 rays: about 47 MB per launch); the candidate
+// loop is ~30 flops per primitive against tables that sit in shared
+// memory. Everything per ray stays in registers; the winner's table row is
+// read once after the loop.
+//
+// Meshes (after the spheres and quads, in mesh order): the BVH walk's
+// closest raw hit t_mesh[m] is a candidate when >= eps (Scene.h:224), and
+// a mesh winner's triangle tri_mesh[m] comes out as tid. A mesh winner's p
+// and n are its triangle hit detail (mesh.cuh) from the mesh pack row of
+// tid; its u, v and texel fields are 0.
 //
 // Table layouts (tracer_torch/kernels/intersect.py::intersect_tables):
 //   sph  [S, 9]:  0:3 c, 3 r, 4:7 mb, 7 valid, 8 midf
@@ -25,20 +31,26 @@
 //            [7, n] = ... idx_t, idx_n (true atlas indices, the record
 //            forward's texel-cotangent fold; 0 unless a quad wins);
 //          out_f [16, n] = p(3), n(3), u, v, tan(3), bitan(3), ptex, pnm.
+// Mesh inputs: t_mesh [Nm, n] f32, tri_mesh [Nm, n] i32, mesh_mid [Nm] f32
+// (the meshes' material ids), pack [T, 24] (intersect.py::mesh_tables).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mesh.cuh"
 
 // Mirror of _Args in tracer_torch/kernels/intersect.py (same order).
 struct FirstHitsArgs {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tm;
   const unsigned char* live;
   const float *sph, *quad;
+  const float* t_mesh;
+  const int* tri_mesh;
+  const float *mesh_mid, *pack;
   int* out_i;
   float* out_f;
-  int n, S, S_real, Q, Q_real, tex_out, p_tex, p_nm;
+  int n, S, S_real, Q, Q_real, n_meshes, T, tex_out, p_tex, p_nm;
   float eps;
 };
 
@@ -141,6 +153,16 @@ first_hits_kernel(FirstHitsArgs a) {
       j = a.S + q;
     }
   }
+  int tid = -1;
+  for (int m = 0; m < a.n_meshes; ++m) {
+    const float traw = a.t_mesh[(size_t)m * n + i];
+    const float t = traw >= eps ? traw : INF;
+    if (t < best) {
+      best = t;
+      j = a.S + a.Q + m;
+      tid = a.tri_mesh[(size_t)m * n + i];
+    }
+  }
 
   // ---- the winner's row, laid out as the TPU kernel's cache: a sphere
   // winner fills c, r, mb, midf and leaves every quad field at zero ------
@@ -157,7 +179,7 @@ first_hits_kernel(FirstHitsArgs a) {
     c4 = r[4]; c5 = r[5]; c6 = r[6];
     midf = r[8];
   } else if (is_q) {
-    qr = squad + (j - a.S) * QUAD_COLS;
+    qr = squad + (size_t)(j - a.S) * QUAD_COLS;
     c0 = qr[0]; c1 = qr[1]; c2 = qr[2];
     c4 = qr[12]; c5 = qr[13]; c6 = qr[14];
     ex = qr[3]; ey = qr[4]; ez = qr[5];
@@ -232,17 +254,28 @@ first_hits_kernel(FirstHitsArgs a) {
     oi[6 * n] = idx_n;
   }
 
+  float px = is_q ? pqx : psx, py = is_q ? pqy : psy, pz = is_q ? pqz : psz;
+  float nx = is_q ? nqx : nsx, ny = is_q ? nqy : nsy, nz = is_q ? nqz : nsz;
+  if (j >= a.S + a.Q) {  // a mesh winner: its triangle's hit detail
+    midf = a.mesh_mid[j - a.S - a.Q];
+    const tt::TriDetail td = tt::triangle_detail(
+        a.pack + (size_t)tt::clampi(tid, 0, a.T - 1) * tt::MESH_PACK_COLS,
+        ox, oy, oz, dx, dy, dz);
+    px = td.px; py = td.py; pz = td.pz;
+    nx = td.nx; ny = td.ny; nz = td.nz;
+  }
+
   oi[0] = best >= INF * 0.5f ? -1 : j;
-  oi[n] = -1;  // tid: no meshes
+  oi[n] = tid;
   oi[2 * n] = (int)midf;
   oi[3 * n] = row;
   oi[4 * n] = sub;
-  of[0] = is_q ? pqx : psx;
-  of[n] = is_q ? pqy : psy;
-  of[2 * n] = is_q ? pqz : psz;
-  of[3 * n] = is_q ? nqx : nsx;
-  of[4 * n] = is_q ? nqy : nsy;
-  of[5 * n] = is_q ? nqz : nsz;
+  of[0] = px;
+  of[n] = py;
+  of[2 * n] = pz;
+  of[3 * n] = nx;
+  of[4 * n] = ny;
+  of[5 * n] = nz;
   of[6 * n] = uq;
   of[7 * n] = vq;
   of[8 * n] = tnx;

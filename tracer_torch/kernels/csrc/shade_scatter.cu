@@ -24,12 +24,19 @@
 // forward of the backward, pair atlas only) also rec [6, n] = the decoded
 // texel img(3) and raw normal-map texel rnm(3) of every active lane, 0 on
 // the others.
+//
+// Mesh winners (j >= S + Q, mesh scenes): p and n come from the first-hit
+// record, which holds their triangle hit detail; the diffuse color is the
+// corner colors of the pack row of tid (intersect.py::mesh_tables)
+// interpolated at the hit (mesh.cuh) where has_col, else the material's
+// untextured diffuse; their emission is zero (Scene.h:277,285).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bsdf.cuh"
 #include "common.cuh"
+#include "mesh.cuh"
 #include "pcg.cuh"
 
 // Mirror of _IO in tracer_torch/kernels/shade.py (same order).
@@ -49,11 +56,13 @@ struct ShadeIO {
   float* out;
   unsigned char* active_out;
   float* rec;
+  const int* tid;     // mesh scenes: the winning triangle
+  const float* pack;  // mesh scenes: [T, 24] mesh pack
 };
 
 // Mirror of _Params in tracer_torch/kernels/shade.py (same order).
 struct ShadeParams {
-  int n, M, Rp, L, S, Q, ref, has_pair, last, rec_out;
+  int n, M, Rp, L, S, Q, ref, has_pair, last, rec_out, n_meshes, T;
   float eps, n_rem, dark;
 };
 
@@ -178,9 +187,26 @@ shade_scatter_kernel(ShadeIO io, ShadeParams p) {
   }
   const bool is_check = textype == TEX_CHECKERBOARD;
   const bool is_img = textype == TEX_IMAGE;
-  const float dcx = is_img ? fbx : (is_check ? chx : dfx);
-  const float dcy = is_img ? fby : (is_check ? chy : dfy);
-  const float dcz = is_img ? fbz : (is_check ? chz : dfz);
+  float dcx = is_img ? fbx : (is_check ? chx : dfx);
+  float dcy = is_img ? fby : (is_check ? chy : dfy);
+  float dcz = is_img ? fbz : (is_check ? chz : dfz);
+  const bool is_mesh = p.n_meshes > 0 && j >= p.S + p.Q;
+  if (is_mesh) {  // corner colors at the hit (Scene.h:291-298)
+    const float* r =
+        io.pack + (size_t)tt::clampi(io.tid[i], 0, p.T - 1) *
+                      tt::MESH_PACK_COLS;
+    if (r[18] > 0.5f) {
+      const tt::TriDetail td =
+          tt::triangle_detail(r, io.ox[i], io.oy[i], io.oz[i], dx, dy, dz);
+      dcx = td.w0 * r[9] + td.w1 * r[12] + td.w2 * r[15];
+      dcy = td.w0 * r[10] + td.w1 * r[13] + td.w2 * r[16];
+      dcz = td.w0 * r[11] + td.w1 * r[14] + td.w2 * r[17];
+    } else {
+      dcx = dfx;
+      dcy = dfy;
+      dcz = dfz;
+    }
+  }
 
   // ---- normal mapping (squares only, Scene.h:284) -----------------------
   if (p.has_pair) {
@@ -210,7 +236,8 @@ shade_scatter_kernel(ShadeIO io, ShadeParams p) {
   const float ecx = is_none ? lcx : (is_img ? fbx : (is_check ? chx : lcx));
   const float ecy = is_none ? lcy : (is_img ? fby : (is_check ? chy : lcy));
   const float ecz = is_none ? lcz : (is_img ? fbz : (is_check ? chz : lcz));
-  const float emx = k_emit * ecx, emy = k_emit * ecy, emz = k_emit * ecz;
+  const float kem = is_mesh ? 0.0f : k_emit;  // Scene.h:277,285
+  const float emx = kem * ecx, emy = kem * ecy, emz = kem * ecz;
 
   // ---- direct lighting from the given shadow factors -------------------
   float clx = 0.0f, cly = 0.0f, clz = 0.0f;

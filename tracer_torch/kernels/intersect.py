@@ -1,5 +1,6 @@
-"""First-hit kernel: the sphere+quad candidate pass, the closest-hit argmin
-and the winner's hit detail in one pass over the rays.
+"""First-hit kernel: the sphere+quad candidate pass, the merge of the
+per-mesh BVH hits, the closest-hit argmin and the winner's hit detail in
+one pass over the rays.
 
 Replaces the TPU kernel `tracer/kernels/intersect.py::first_hits` (Pallas,
 `pl.pallas_call` at intersect.py:433) with the CUDA kernel
@@ -8,17 +9,28 @@ Replaces the TPU kernel `tracer/kernels/intersect.py::first_hits` (Pallas,
 what the wrapper runs for CPU tensors.
 
 What bounds it on an H100: per ray it reads about 32 B (o, d, time, live)
-and writes 84 B (21 planar outputs); the scene tables (Cornell: 8x9 +
-16x47 floats) sit in shared memory, and the candidate loop is ~30 flops per
-primitive. So it is bound by memory traffic and launch latency, far below
-the card's compute bound. The design keeps every per-ray intermediate in
-registers, reads the winner's table row once after the loop instead of
-carrying a winner cache through it, and writes each output once.
+plus 8 B per mesh and writes 84 B (21 planar outputs); the scene tables
+(Cornell: 8x9 + 16x47 floats) sit in shared memory, and the candidate loop
+is ~30 flops per primitive. So it is bound by memory traffic and launch
+latency, far below the card's compute bound. The design keeps every
+per-ray intermediate in registers, reads the winner's table row once after
+the loop instead of carrying a winner cache through it, and writes each
+output once.
 
 Semantics (mirrored from the TPU kernel):
-- selection is strict-< in (spheres, quads) order over the REAL rows;
+- selection is strict-< in (spheres, quads, meshes) order over the REAL
+  rows; a mesh's candidate is its closest raw hit from the BVH walk
+  (`traverse.py`) when that is >= eps, else none: a mesh whose closest hit
+  lies below eps drops out entirely (Scene.h:224);
+- `tid` is the winning mesh's triangle, -1 for other winners;
 - a sphere winner's quad fields read as zero, so its u = v = 0 and
   tan = bitan = 0, exactly as the TPU kernel's zeroed cache leaves them;
+- a mesh winner's p and n are its triangle hit detail
+  (`primitives.triangle_hit_detail`, the JAX package's
+  `integrator._mesh_detail_p`) from the mesh pack row of `tid`: the TPU
+  kernel leaves them stale and the JAX integrator replaces them, but here
+  the soft-shadow kernel reads the hit point before the shade kernel runs;
+  u = v = 0 and its texel fields are 0;
 - `tex_out=1` adds the pair-atlas texel index (row, sub) and the per-lane
   atlas-validity masks (ptex, pnm) for quad winners;
 - `tex_out=2` (the record forward of the backward) also adds the true
@@ -26,8 +38,6 @@ Semantics (mirrored from the TPU kernel):
   `nm_data`, clipped to the atlas, for quad winners; other lanes get 0;
 - lanes with `live` false get the defaults: j = tid = -1, n = (0, 0, 1),
   everything else 0.
-Meshes (the per-mesh BVH hits merged after the eps cut) come with the
-traversal kernel; until then `tid` is always -1.
 """
 
 from __future__ import annotations
@@ -92,31 +102,66 @@ def intersect_tables(scene):
     return sph.contiguous(), quad.contiguous()
 
 
-def _check_scene(scene):
-    if scene.mesh_mat.shape[0] > 0:
-        raise NotImplementedError(
-            "first_hits: mesh candidates need the traversal kernel "
-            "(ROADMAP.md Queue A, 'Mesh scenes')")
+MESH_PACK_COLS = 24
+
+
+def mesh_tables(scene):
+    """(midf [Nm] f32, pack [T, 24] f32): the meshes' material ids and one
+    row per triangle (the JAX package's `integrator._mesh_detail_p` pack):
+    0:9 the three vertices from the shared `mesh_verts`, 9:18 the three
+    corner colors, 18 has_col, zeros to 24. Build it once per frame."""
+    v = scene.mesh_verts
+    T = scene.tri_va.shape[0]
+    pack = torch.cat([
+        v[scene.tri_va.long()], v[scene.tri_vb.long()], v[scene.tri_vc.long()],
+        scene.tri_col_a, scene.tri_col_b, scene.tri_col_c,
+        scene.tri_has_col[:, None],
+        torch.zeros((T, MESH_PACK_COLS - 19), dtype=torch.float32,
+                    device=v.device)], dim=1)
+    return scene.mesh_mat.to(torch.float32).contiguous(), pack.contiguous()
+
+
+def mesh_detail(pack, o, d, tid):
+    """Hit detail on the triangle `tid` [N] (clipped to the pack) of each
+    lane: (p, n, color, has_col), planar; color is the corner colors
+    interpolated by the barycentric weights (Scene.h:291-298)."""
+    row = pack[torch.clamp(tid, 0, pack.shape[0] - 1).long()]
+    a, b, c = ((row[:, k], row[:, k + 1], row[:, k + 2]) for k in (0, 3, 6))
+    p, n, w0, w1, w2 = prim.triangle_hit_detail(o, d, a, b, c)
+    col = tuple(w0 * row[:, 9 + i] + w1 * row[:, 12 + i]
+                + w2 * row[:, 15 + i] for i in range(3))
+    return p, n, col, row[:, 18]
 
 
 def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
-               kernels="auto", tables=None):
+               kernels="auto", tables=None, t_mesh=None, tri_mesh=None,
+               mesh=None):
     """Closest hit + winner detail for planar rays.
 
     o, d: planar (x, y, z) of [N] f32; time [N] f32; live [N] bool.
+    Mesh scenes also pass the BVH walk's closest raw hits t_mesh [Nm, N]
+    f32 and tri_mesh [Nm, N] int32 (`traverse.mesh_closest_hits`) and
+    `mesh`, a precomputed `mesh_tables(scene)`.
     Returns dict(j [-1 = miss], tid, mid, row, sub (int32), p, n, tan,
     bitan (planar f32), u, v, ptex, pnm (f32)), plus idx_t, idx_n (int32)
     when `tex_out=2`. `tables`: a precomputed `intersect_tables(scene)`."""
-    _check_scene(scene)
     if tex_out not in (0, 1, 2):
         raise ValueError(f"first_hits: tex_out must be 0, 1 or 2, got "
                          f"{tex_out!r}")
     if tables is None:
         tables = intersect_tables(scene)
+    Nm = scene.mesh_mat.shape[0]
+    if Nm > 0:
+        if t_mesh is None or tri_mesh is None:
+            raise ValueError("first_hits: a mesh scene needs t_mesh and "
+                             "tri_mesh (traverse.mesh_closest_hits)")
+        if mesh is None:
+            mesh = mesh_tables(scene)
     if kc.use_kernel(kernels, o[0]):
         return _first_hits_cuda(scene, o, d, time, live, eps, tex_out,
-                                tables)
-    return first_hits_plain(scene, o, d, time, live, eps, tex_out, tables)
+                                tables, t_mesh, tri_mesh, mesh)
+    return first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
+                            t_mesh, tri_mesh, mesh)
 
 
 def _unpack(out_i, out_f):
@@ -133,21 +178,24 @@ def _unpack(out_i, out_f):
     return out
 
 
-def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
+def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
+                     t_mesh=None, tri_mesh=None, mesh=None):
     """The plain PyTorch version of the kernel (same expressions, same
     order; a Python loop over the table rows)."""
     sph, quad = tables
     S, Q = sph.shape[0], quad.shape[0]
+    Nm = scene.mesh_mat.shape[0]
     tm = time
     N = o[0].shape[0]
     dev = o[0].device
     a2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     best = torch.full((N,), prim.INF, dtype=torch.float32, device=dev)
     j = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    tid = torch.full((N,), -1, dtype=torch.int32, device=dev)
 
     for s in range(min(scene.n_sph_real, S)):
         r = sph[s]
-        t, ok = prim.sphere_t(o, d, a2, tm, (r[0], r[1], r[2]), r[3],
+        t, ok = prim.sphere_t(o, d, a2, tm, (r[0], r[1], r[2]), r[3] * r[3],
                               (r[4], r[5], r[6]), r[7], eps)
         upd = ok & (t < best)
         best = torch.where(upd, t, best)
@@ -157,6 +205,12 @@ def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
         upd = ok & (t < best)
         best = torch.where(upd, t, best)
         j = torch.where(upd, S + q, j)
+    for m in range(Nm):  # the scene-level eps cut (Scene.h:224)
+        t = torch.where(t_mesh[m] >= eps, t_mesh[m], prim.INF)
+        upd = t < best
+        best = torch.where(upd, t, best)
+        j = torch.where(upd, S + Q + m, j)
+        tid = torch.where(upd, tri_mesh[m], tid)
 
     # ---- the winner's row, as the TPU kernel's cache holds it ----------
     is_s = (j >= 0) & (j < S)
@@ -183,14 +237,23 @@ def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables):
     pq, nq, uq, vq = prim.quad_hit_detail(o, d, tm, v0, (ex, ey, ez),
                                           (ux, uy, uz), mb)
 
+    p = tuple(torch.where(is_q, a, b) for a, b in zip(pq, ps))
+    n = tuple(torch.where(is_q, a, b) for a, b in zip(nq, ns))
+    if Nm > 0:
+        is_m = j >= S + Q
+        midm, pack = mesh
+        midf = torch.where(is_m, midm[torch.clamp(j - S - Q, 0, Nm - 1).long()],
+                           midf)
+        pm, nm_, _, _ = mesh_detail(pack, o, d, tid)
+        p = tuple(torch.where(is_m, a, b) for a, b in zip(pm, p))
+        n = tuple(torch.where(is_m, a, b) for a, b in zip(nm_, n))
+
     miss = best >= prim.INF * 0.5
     zi = torch.zeros_like(j)
     zf = torch.zeros_like(tm)
     out = dict(
-        j=torch.where(miss, -1, j), tid=torch.full_like(j, -1),
-        mid=midf.to(torch.int32), row=zi, sub=zi,
-        p=tuple(torch.where(is_q, a, b) for a, b in zip(pq, ps)),
-        n=tuple(torch.where(is_q, a, b) for a, b in zip(nq, ns)),
+        j=torch.where(miss, -1, j), tid=tid,
+        mid=midf.to(torch.int32), row=zi, sub=zi, p=p, n=n,
         u=uq, v=vq,
         tan=(quad_only(26), quad_only(27), quad_only(28)),
         bitan=(quad_only(29), quad_only(30), quad_only(31)),
@@ -244,9 +307,10 @@ class _Args(ctypes.Structure):
     """Mirror of `FirstHitsArgs` in csrc/first_hits.cu (same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "live", "sph", "quad",
-        "out_i", "out_f")] + [
+        "t_mesh", "tri_mesh", "mesh_mid", "pack", "out_i", "out_f")] + [
         ("n", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
         ("Q", ctypes.c_int), ("Q_real", ctypes.c_int),
+        ("n_meshes", ctypes.c_int), ("T", ctypes.c_int),
         ("tex_out", ctypes.c_int), ("p_tex", ctypes.c_int),
         ("p_nm", ctypes.c_int), ("eps", ctypes.c_float)]
 
@@ -254,7 +318,8 @@ class _Args(ctypes.Structure):
 _MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
 
 
-def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables):
+def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
+                     t_mesh=None, tri_mesh=None, mesh=None):
     from tracer_torch.kernels import _build
     global LAUNCHES
     sph, quad = tables
@@ -278,6 +343,16 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables):
     a.live = kc.check("live", live, torch.bool, (N,), dev)
     a.sph = kc.check("sph", sph, f32, (S, 9), dev)
     a.quad = kc.check("quad", quad, f32, (Q, 47), dev)
+    Nm = scene.mesh_mat.shape[0]
+    if Nm > 0:
+        midm, pack = mesh
+        a.t_mesh = kc.check("t_mesh", t_mesh, f32, (Nm, N), dev)
+        a.tri_mesh = kc.check("tri_mesh", tri_mesh, i32, (Nm, N), dev)
+        a.mesh_mid = kc.check("mesh_mid", midm, f32, (Nm,), dev)
+        a.pack = kc.check("pack", pack, f32,
+                          (pack.shape[0], MESH_PACK_COLS), dev)
+        a.T = pack.shape[0]
+    a.n_meshes = Nm
     a.out_i, a.out_f = out_i.data_ptr(), out_f.data_ptr()
     a.n, a.S, a.S_real, a.Q, a.Q_real = N, S, S_real, Q, Q_real
     a.tex_out, a.eps = int(tex_out), float(eps)

@@ -22,6 +22,14 @@ final bounce) writes only the radiance accumulator. `rec_out=True` (the
 record forward of the backward; pair atlas only) also returns the decoded
 texel img(3) and raw normal-map texel rnm(3) that the pass computes anyway,
 as one [6, N] stack, zero on lanes that are not active.
+
+Mesh winners (`j >= S + Q`): p and n come from the first-hit record (it
+holds their triangle hit detail); the diffuse color is the triangle's
+corner colors interpolated at the hit (Scene.h:291-298) where the mesh
+has colors, else the material's untextured diffuse; their emission is
+zero (the reference quirk, Scene.h:277,285). The kernel reads the mesh
+pack row of `tid` itself (`intersect.mesh_tables`); the plain version
+takes the colors from `intersect.mesh_detail`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 from tracer_torch.core import rng
 from tracer_torch.core import vec3p as vp
 from tracer_torch.kernels import common as kc
+from tracer_torch.kernels import intersect as kintersect
 from tracer_torch.render import shading
 
 DIFFUSE, GLASS, MIRROR = 0, 1, 2
@@ -73,22 +82,21 @@ def shade_tables(scene):
 
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
                   use_pair=False, last=False, kernels="auto", tables=None,
-                  rec_out=False):
+                  rec_out=False, mesh=None):
     """One bounce's shading and scatter over planar ray state.
 
     state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
     `active` bool [N]. bkeys: this bounce's keys (int64 holding uint32).
     k1: the `first_hits` record (j, mid, p, n, u, v, tan, bitan and, with
     `use_pair`, row, sub, ptex, pnm). shadows: [L, N] f32 soft-shadow
-    factors, or None when the scene has no lights. Returns the next state
+    factors, or None when the scene has no lights. `mesh`: a precomputed
+    `intersect.mesh_tables(scene)` (mesh scenes). Returns the next state
     dict, or only acc (planar) when `last`; with `rec_out` (which needs
     `use_pair`), the pair (that result, rec [6, N])."""
     if rec_out and not use_pair:
         raise ValueError("shade_scatter: rec_out needs use_pair")
-    if scene.mesh_mat.shape[0] > 0:
-        raise NotImplementedError(
-            "shade_scatter: mesh hit detail is not ported yet "
-            "(ROADMAP.md Queue A, 'Mesh scenes')")
+    if scene.mesh_mat.shape[0] > 0 and mesh is None:
+        mesh = kintersect.mesh_tables(scene)
     if scene.has_sky_image:
         raise NotImplementedError(
             "shade_scatter: the image skybox is not ported yet "
@@ -103,13 +111,15 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
         shadows = shadows.reshape(L, N).contiguous()
     if kc.use_kernel(kernels, state["d"][0]):
         return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
-                                   shadows, use_pair, last, tables, rec_out)
+                                   shadows, use_pair, last, tables, rec_out,
+                                   mesh)
     return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
-                               shadows, use_pair, last, tables, rec_out)
+                               shadows, use_pair, last, tables, rec_out,
+                               mesh)
 
 
 def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables, rec_out=False):
+                        use_pair, last, tables, rec_out=False, mesh=None):
     """The plain PyTorch version of the kernel (planar 3-tuples)."""
     mat_tab, light_tab, _ = tables
     S = scene.sph_center.shape[0]
@@ -157,6 +167,13 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     is_check = textype == shading.TEX_CHECKERBOARD
     is_img = textype == shading.TEX_IMAGE
     dcol = vp.where(is_img, img, vp.where(is_check, checker, diffuse))
+    if scene.mesh_mat.shape[0] > 0:
+        is_mesh = j >= S + Q
+        _, _, mcol, has_col = kintersect.mesh_detail(
+            mesh[1], state["o"], d, k1["tid"])
+        dcol = vp.where(is_mesh, vp.where(has_col > 0.5, mcol, diffuse),
+                        dcol)
+        k_emit = torch.where(is_mesh, 0.0, k_emit)  # Scene.h:277,285
 
     # ---- normal mapping (squares only, Scene.h:284) ---------------------
     rec = None
@@ -243,7 +260,7 @@ _IO_FIELDS = (
     "ax", "ay", "az", "active", "key", "j", "px", "py", "pz",
     "nx", "ny", "nz", "u", "v", "tnx", "tny", "tnz", "btx", "bty", "btz",
     "mid", "row", "sub", "ptex", "pnm", "shadows", "mat", "light", "pair",
-    "out", "active_out", "rec")
+    "out", "active_out", "rec", "tid", "pack")
 
 
 class _IO(ctypes.Structure):
@@ -255,12 +272,12 @@ class _Params(ctypes.Structure):
     """Mirror of `ShadeParams` in csrc/shade_scatter.cu (same order)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last",
-        "rec_out")] + [
+        "rec_out", "n_meshes", "T")] + [
         (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")]
 
 
 def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables, rec_out=False):
+                        use_pair, last, tables, rec_out=False, mesh=None):
     from tracer_torch.kernels import _build
     global LAUNCHES
     mat_tab, light_tab, dark = tables
@@ -291,6 +308,13 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
     Rp = scene.pair_pack.shape[0]
     io.pair = kc.check("pair_pack", scene.pair_pack, i32,
                        (Rp, 2 * shading.PACK_BLOCK), dev)
+    Nm, T = scene.mesh_mat.shape[0], 0
+    if Nm > 0:
+        pack = mesh[1]
+        T = pack.shape[0]
+        io.tid = kc.check("tid", k1["tid"], i32, (N,), dev)
+        io.pack = kc.check("pack", pack, f32,
+                           (T, kintersect.MESH_PACK_COLS), dev)
     out = torch.empty((3 if last else 12, N), dtype=f32, device=dev)
     io.out = out.data_ptr()
     active_out = None
@@ -305,7 +329,8 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                   S=scene.sph_center.shape[0], Q=scene.quad_v0.shape[0],
                   ref=int(cfg.compat == "reference"),
                   has_pair=int(bool(use_pair)), last=int(bool(last)),
-                  rec_out=int(bool(rec_out)), eps=float(cfg.epsilon),
+                  rec_out=int(bool(rec_out)), n_meshes=Nm, T=T,
+                  eps=float(cfg.epsilon),
                   n_rem=float(n_rem), dark=dark)
     if N > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream

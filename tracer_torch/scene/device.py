@@ -8,8 +8,9 @@ pair-packed atlas (one row holds 16 texture words and the 16 normal-map
 words of the same texel indices). Field names, shapes, dtypes and values
 equal the JAX `DeviceScene` field by field (tests/test_torch_scene.py).
 
-Meshes raise NotImplementedError: the triangle soup and its BVHs come with
-the traversal kernel (ROADMAP.md Queue A, "Mesh scenes").
+Meshes become one triangle soup (with a shared vertex table and per-corner
+colors) and one flattened BVH per mesh, concatenated with node and
+triangle offsets; `mesh_root` / `mesh_end` give each mesh's node range.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from tracer_torch.accel.bvh import (TRIANGLE_SCALING, build_bvh,
+                                    triangle_bounds)
 from tracer_torch.scene import builder as B
 
 _META = ("mesh_root", "mesh_end", "leaf_width", "has_sky_image", "pair_mode",
@@ -45,7 +48,7 @@ class DeviceScene:
     quad_mat: torch.Tensor        # [Q] i32
     quad_valid: torch.Tensor      # [Q] f32
 
-    # --- triangle soup (only the sentinel row until meshes are ported) ---
+    # --- triangle soup (+ a degenerate sentinel row, index T) ------------
     tri_a: torch.Tensor           # [T, 3]
     tri_b: torch.Tensor           # [T, 3]
     tri_c: torch.Tensor           # [T, 3]
@@ -365,15 +368,104 @@ def _build_pair_atlas(mats, quad_rows, textures, normal_maps):
     return pack, off, wa, ha, wb, hb, tex_ok, nm_ok, True
 
 
+def _meshes(sb: B.SceneBuilder, mat_id, leaf_width: int, bvh_max_depth: int,
+            use_native: bool):
+    """The triangle soup, the shared vertex table and every mesh's BVH,
+    flattened and offset to global ids (`tracer/scene/device.py:488-588`).
+    Materials are numbered after the spheres' and quads', as in JAX."""
+    tri_a_l, tri_b_l, tri_c_l = [], [], []
+    verts_l, tri_va_l, tri_vb_l, tri_vc_l = [], [], [], []
+    tri_mesh_l, tca, tcb, tcc, thc = [], [], [], [], []
+    mesh_mat_l, mesh_root_l, mesh_end_l = [], [], []
+    bvh_lo_l, bvh_hi_l, bvh_ls_l, bvh_skip_l, leaf_tris_l = [], [], [], [], []
+    vert_cursor = tri_cursor = node_cursor = leaf_cursor = 0
+    for mi, m in enumerate(sb.meshes):
+        mesh_mat_l.append(mat_id(m.material))
+        v = m.verts * TRIANGLE_SCALING  # KDTree.cpp:38-40 leaf-test scaling
+        t = m.tris
+        tri_a_l.append(v[t[:, 0]])
+        tri_b_l.append(v[t[:, 1]])
+        tri_c_l.append(v[t[:, 2]])
+        verts_l.append(v.astype(np.float32))
+        for lst, c in ((tri_va_l, 0), (tri_vb_l, 1), (tri_vc_l, 2)):
+            lst.append(t[:, c].astype(np.int32) + vert_cursor)
+        vert_cursor += v.shape[0]
+        tri_mesh_l.append(np.full(t.shape[0], mi, np.int32))
+        if m.vert_colors is not None:
+            cols = [m.vert_colors[t[:, c]] for c in range(3)]
+        elif m.face_colors is not None:
+            cols = [m.face_colors] * 3
+        else:
+            cols = [np.zeros((t.shape[0], 3), np.float32)] * 3
+        for lst, col in zip((tca, tcb, tcc), cols):
+            lst.append(col)
+        has = m.vert_colors is not None or m.face_colors is not None
+        thc.append(np.full(t.shape[0], 1.0 if has else 0.0, np.float32))
+
+        lo, hi = triangle_bounds(m.verts, t)
+        if use_native:
+            from tracer_torch.accel.native import build_bvh_native
+            bvh = build_bvh_native(lo, hi, leaf_width, bvh_max_depth)
+        else:
+            bvh = build_bvh(lo, hi, leaf_width, bvh_max_depth, sentinel=-1)
+        lt = bvh.leaf_tris.copy()           # mesh-local ids -> global
+        lt[lt >= 0] += tri_cursor
+        ls = bvh.node_leaf_start.copy()
+        ls[ls >= 0] += leaf_cursor
+        bvh_lo_l.append(bvh.node_lo)
+        bvh_hi_l.append(bvh.node_hi)
+        bvh_ls_l.append(ls)
+        bvh_skip_l.append(bvh.node_skip + node_cursor)
+        leaf_tris_l.append(lt)
+        mesh_root_l.append(node_cursor)
+        node_cursor += bvh.n_nodes
+        mesh_end_l.append(node_cursor)
+        leaf_cursor += lt.shape[0]
+        tri_cursor += t.shape[0]
+
+    def cat3(lst):  # + the sentinel row (degenerate, never hits)
+        return np.concatenate(lst + [np.zeros((1, 3), np.float32)],
+                              axis=0).astype(np.float32)
+
+    tri_a = cat3(tri_a_l)
+    mesh_verts = cat3(verts_l)
+    sent = np.full(1, mesh_verts.shape[0] - 1, np.int32)
+    T = tri_a.shape[0] - 1
+    leaf_tris = (np.concatenate(leaf_tris_l) if leaf_tris_l
+                 else np.zeros(0, np.int32))
+    out = dict(
+        tri_a=tri_a, tri_b=cat3(tri_b_l), tri_c=cat3(tri_c_l),
+        mesh_verts=mesh_verts,
+        tri_va=np.concatenate(tri_va_l + [sent]).astype(np.int32),
+        tri_vb=np.concatenate(tri_vb_l + [sent]).astype(np.int32),
+        tri_vc=np.concatenate(tri_vc_l + [sent]).astype(np.int32),
+        tri_mesh=np.concatenate(tri_mesh_l + [np.zeros(1, np.int32)]),
+        tri_col_a=cat3(tca), tri_col_b=cat3(tcb), tri_col_c=cat3(tcc),
+        tri_has_col=np.concatenate(thc + [np.zeros(1, np.float32)]),
+        mesh_mat=np.asarray(mesh_mat_l, np.int32).reshape(-1),
+        bvh_leaf_tris=np.where(leaf_tris < 0, T, leaf_tris).astype(np.int32))
+    if sb.meshes:
+        out.update(bvh_lo=np.concatenate(bvh_lo_l, axis=0),
+                   bvh_hi=np.concatenate(bvh_hi_l, axis=0),
+                   bvh_leaf_start=np.concatenate(bvh_ls_l),
+                   bvh_skip=np.concatenate(bvh_skip_l))
+    else:
+        out.update(bvh_lo=np.zeros((0, 3), np.float32),
+                   bvh_hi=np.zeros((0, 3), np.float32),
+                   bvh_leaf_start=np.zeros(0, np.int32),
+                   bvh_skip=np.zeros(0, np.int32))
+    meta = dict(mesh_root=tuple(int(x) for x in mesh_root_l),
+                mesh_end=tuple(int(x) for x in mesh_end_l))
+    return out, meta
+
+
 def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
                   bvh_max_depth: int = 64, pad: int = 8,
-                  device="cuda") -> DeviceScene:
+                  use_native: bool = True, device="cuda") -> DeviceScene:
     """Lower a SceneBuilder to a DeviceScene on `device` (the card unless
-    the caller asks for the CPU)."""
-    if sb.meshes:
-        raise NotImplementedError(
-            "mesh scenes need the BVH traversal kernel, which is not ported "
-            "yet (ROADMAP.md Queue A, 'Mesh scenes')")
+    the caller asks for the CPU). `use_native` builds each mesh's BVH with
+    the C++ SAH builder (`accel/native.py`, raising if g++ fails); False
+    takes the numpy median-split builder."""
     mats: list[B.Material] = []
 
     def mat_id(m: B.Material) -> int:
@@ -418,9 +510,9 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
         quad_mat[i] = mat_id(q.material)
         quad_valid[i] = 1.0
 
-    # ---- triangle soup: the sentinel row alone (no meshes) --------------
-    z3 = np.zeros((1, 3), np.float32)
-    z0 = np.zeros(1, np.int32)
+    # ---- meshes / triangle soup ----------------------------------------
+    mesh_fields, mesh_meta = _meshes(sb, mat_id, leaf_width, bvh_max_depth,
+                                     use_native)
 
     # ---- material table -------------------------------------------------
     if not mats:
@@ -476,16 +568,7 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
         quad_v0=quad_v0, quad_er=quad_er, quad_eu=quad_eu,
         quad_normal=quad_normal, quad_tan=quad_tan, quad_bitan=quad_bitan,
         quad_mat=quad_mat, quad_valid=quad_valid,
-        tri_a=z3, tri_b=z3, tri_c=z3, mesh_verts=z3,
-        tri_va=z0, tri_vb=z0, tri_vc=z0, tri_mesh=z0,
-        tri_col_a=z3, tri_col_b=z3, tri_col_c=z3,
-        tri_has_col=np.zeros(1, np.float32),
-        mesh_mat=np.zeros(0, np.int32),
-        bvh_lo=np.zeros((0, 3), np.float32),
-        bvh_hi=np.zeros((0, 3), np.float32),
-        bvh_leaf_start=np.zeros(0, np.int32),
-        bvh_skip=np.zeros(0, np.int32),
-        bvh_leaf_tris=np.zeros(0, np.int32),
+        **mesh_fields,
         mat_diffuse=mat_diffuse, mat_specular=mat_specular,
         mat_shininess=mat_shininess, mat_mb=mat_mb, mat_ior=mat_ior,
         mat_transparency=mat_transp, mat_type=mat_type,
@@ -505,7 +588,7 @@ def compile_scene(sb: B.SceneBuilder, leaf_width: int = 16,
         sky_data=sky_data, sky_w=np.int32(sw), sky_h=np.int32(sh),
         dark_sky=np.float32(1.0 if sb.dark_sky else 0.0))
     meta = dict(
-        mesh_root=(), mesh_end=(), leaf_width=leaf_width,
+        **mesh_meta, leaf_width=leaf_width,
         has_sky_image=sb.skybox is not None, pair_mode=pair_mode,
         emissive_tex_image=bool(
             np.any((mat_emissive > 0) & (mat_textype == 2))),

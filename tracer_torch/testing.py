@@ -1,6 +1,7 @@
 """Test scenes for the parity tests and the chip smoke run (not a render
 feature): a Cornell box whose image textures and normal maps are seeded
-uint8 arrays instead of the reference's PPM assets.
+uint8 arrays instead of the reference's PPM assets, and procedural
+stand-in meshes in place of the reference's OFF meshes.
 
 The Cornell builder loads two textures (brick, sand) and three normal maps
 (brick, floor, water — the last unused). `fill_cornell_textures` fills those
@@ -11,6 +12,8 @@ arrays can be put into a `tracer` and a `tracer_torch` SceneBuilder.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -35,4 +38,87 @@ def fill_cornell_textures(sb, dims=SMALL, seed: int = 0):
     sb.normal_maps[0] = img(dims["brick"])   # brick normal map (matched)
     sb.normal_maps[1] = img(dims["floor_nm"])  # floor normal map (product)
     sb.normal_maps[2] = img(dims["water_nm"])  # loaded, unused
+    return sb
+
+
+# Where the zoo places the meshes the stand-ins replace: (scale, rotations
+# in degrees about x, y, z, translation), applied in that order. The
+# stand-in's ring lies in its local yz-plane, so the flamingo's rotations
+# turn it to face the camera; the pond's extra turn about z lays it flat.
+PLACEMENTS = dict(
+    flamingo=(2.5, (90, 90, 180), (0., 1., -8.)),        # zoo.py:315-316
+    pond=(3.0, (0, 0, 90), (1., -5., -3.)),              # zoo.py:380
+    pond_flamingo=(0.8, (90, 115, 180), (3., -1.2, -1.)),  # zoo.py:389-390
+)
+
+
+def standin_mesh(n_tris: int = 52_900, seed: int = 0):
+    """A procedural mesh of about `n_tris` triangles: a torus about the x
+    axis, a grid of nu rings of 2*nu quads (2 * 2*nu^2 triangles; 52,900 for nu = 115, the
+    size of the reference's flamingo.off) whose minor radius is displaced
+    by seeded low-frequency waves, with seeded smooth vertex colors.
+    Returns numpy (verts [V, 3] f32, tris [T, 3] i32, colors [V, 3] f32)."""
+    rs = np.random.RandomState(seed)
+    nu = max(3, int(round(np.sqrt(n_tris / 4.0))))
+    nv = 2 * nu
+    u = 2.0 * np.pi * np.arange(nu) / nu        # around the tube
+    v = 2.0 * np.pi * np.arange(nv) / nv        # around the ring
+    U, V = np.meshgrid(u, v, indexing="ij")     # [nu, nv]
+    bump = np.zeros_like(U)
+    for _ in range(4):
+        ku, kv = rs.randint(1, 6), rs.randint(1, 9)
+        bump += rs.uniform(0.02, 0.06) * np.sin(ku * U + kv * V
+                                                + rs.uniform(0, 2 * np.pi))
+    R, r = 0.45, 0.15 * (1.0 + bump)
+    verts = np.stack([r * np.sin(U),
+                      (R + r * np.cos(U)) * np.cos(V),
+                      (R + r * np.cos(U)) * np.sin(V)], axis=-1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = i * nv + j
+    b = ((i + 1) % nu) * nv + j
+    c = ((i + 1) % nu) * nv + (j + 1) % nv
+    d = i * nv + (j + 1) % nv
+    # wound so that the normals point out of the tube
+    tris = np.concatenate([np.stack([a, c, b], -1).reshape(-1, 3),
+                           np.stack([a, d, c], -1).reshape(-1, 3)])
+    phase = rs.uniform(0, 2 * np.pi, 3)
+    colors = 0.5 + 0.4 * np.sin(np.stack([U + phase[0], V + phase[1],
+                                          U + V + phase[2]], -1))
+    return (verts.astype(np.float32), tris.astype(np.int32),
+            colors.reshape(-1, 3).astype(np.float32))
+
+
+def add_standin(sb, n_tris: int = 52_900, seed: int = 0,
+                placement: str = "flamingo"):
+    """Add a `standin_mesh` to a scene builder of either package, placed
+    where the zoo places the mesh it stands in for (`PLACEMENTS`), with
+    the zoo's material for that mesh (zoo.py:312-313); returns the mesh."""
+    mod = importlib.import_module(type(sb).__module__)
+    verts, tris, colors = standin_mesh(n_tris, seed)
+    m = mod.MeshObject(verts, tris, vert_colors=colors,
+                       material=mod.Material(diffuse=(0.1, 0.2, 0.5),
+                                             specular=(0.9, 0.9, 0.9),
+                                             shininess=6.))
+    scale, (rx, ry, rz), pos = PLACEMENTS[placement]
+    m.scale((scale,) * 3).rotate_x(rx).rotate_y(ry).rotate_z(rz)
+    m.translate(pos)
+    return sb.add_mesh(m)
+
+
+def flamingo_standin(zoo, n_tris: int = 52_900, seed: int = 0):
+    """`zoo.setup_flamingo()` (of either package's zoo module) with a
+    stand-in mesh at the flamingo's place: 2 lights, a glass and a mirror
+    sphere, the checker floor and one mesh."""
+    sb = zoo.setup_flamingo()
+    add_standin(sb, n_tris, seed, "flamingo")
+    return sb
+
+
+def flamingo_pond_standin(zoo, n_pond: int = 11_100, n_flamingo: int = 52_900,
+                          seed: int = 0):
+    """`zoo.setup_flamingo_pond()` with stand-ins for the pond and the
+    flamingo (two meshes, one light, a mirror quad)."""
+    sb = zoo.setup_flamingo_pond()
+    add_standin(sb, n_pond, seed, "pond")
+    add_standin(sb, n_flamingo, seed + 1, "pond_flamingo")
     return sb

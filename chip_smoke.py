@@ -17,10 +17,12 @@ plain path. Then lit mesh scenes: the BVH walk (B5) and the soft shadows
 (B6) against their plain versions on 408,000 lanes (flamingo_standin:
 `setup_flamingo` with a 52,900-triangle stand-in mesh; the flamingo_pond
 layout with stand-ins of 11,236 and 52,900 triangles; random_spheres,
-whose shadows test tables only), B1 and B2 with mesh and light inputs,
-and the renders of flamingo_standin (16 spp) and random_spheres (4 spp)
-through `render`, with and without the sorted ray queues, their launch
-counts and their 1-spp radiance held against the plain path. Every phase
+whose shadows test tables only), with each ray's walk steps
+(p50/p90/p99/max, counted by the plain versions), the persistent blocks,
+and probes of the JAX package's sorted dispatch in front of them; B1 and
+B2 with mesh and light inputs, and the renders of flamingo_standin
+(16 spp) and random_spheres (4 spp) through `render`, their launch counts
+and their 1-spp radiance held against the plain path. Every phase
 prints one line; any failure is an uncaught exception and a non-zero
 exit. The last two lines are a JSON record of the kernels and
 `{"ok": true, ...}`.
@@ -634,7 +636,7 @@ def protocol_phase(label, sb, spp, trainable=TRAINABLE):
     return launches
 
 
-def profile_phase(label, sb, trainable=TRAINABLE, ray_sort="auto"):
+def profile_phase(label, sb, trainable=TRAINABLE):
     """Where the time of one 16-spp protocol fwd+bwd goes (or, with no
     trainable field, of one 16-spp forward `render_pixels`): torch.profiler
     over the step (its wall includes the profiler's own overhead), device
@@ -643,7 +645,7 @@ def profile_phase(label, sb, trainable=TRAINABLE, ray_sort="auto"):
     from torch.profiler import ProfilerActivity, profile
     scene = compile_scene(sb, device=DEV)
     cam = default_camera(W / H, device=DEV)
-    cfg = RenderConfig(max_bounces=BOUNCES, ray_sort=ray_sort)
+    cfg = RenderConfig(max_bounces=BOUNCES)
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
 
     def step():
@@ -664,7 +666,7 @@ def profile_phase(label, sb, trainable=TRAINABLE, ray_sort="auto"):
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
-    say("profile", scene=label, spp=SPP, ray_sort=ray_sort,
+    say("profile", scene=label, spp=SPP,
         step="+".join(trainable) if trainable else "forward",
         wall_ms=f"{wall_ms:.1f}", device_busy_ms=f"{busy_ms:.1f}",
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}",
@@ -674,10 +676,10 @@ def profile_phase(label, sb, trainable=TRAINABLE, ray_sort="auto"):
 
 
 def render_phase(label, sb, spp, plain_frame=True):
-    """The render through the normal entry point, with launch counts, the
-    frame again without the sorted ray queues (mesh scenes), then the
-    1-spp radiance against the plain path on the card. `plain_frame`: also
-    time the plain path's whole frame (the walk's and the shadows' plain
+    """The render through the normal entry point, with launch counts, two
+    more frames (mesh scenes: the frame time's spread), then the 1-spp
+    radiance against the plain path on the card. `plain_frame`: also time
+    the plain path's whole frame (the walk's and the shadows' plain
     versions make that minutes long on the mesh scenes, whose plain time
     is given at 1 spp instead)."""
     scene = compile_scene(sb, device=DEV)
@@ -704,16 +706,13 @@ def render_phase(label, sb, spp, plain_frame=True):
         raise AssertionError(f"{label}: bad image {img.shape}")
     extra = {}
     if meshes:
-        # sorted and unsorted frames in turns: unsorted, sorted, unsorted
-        times = {"auto": [frame_s], "off": []}
-        for sort in ("off", "auto", "off"):
+        frames = [frame_s]
+        for _ in range(2):
             t0 = time.perf_counter()
-            renderer.render(scene, cam, dataclasses.replace(cfg,
-                                                            ray_sort=sort))
+            renderer.render(scene, cam, cfg)
             torch.cuda.synchronize()
-            times[sort].append(time.perf_counter() - t0)
-        extra["frames_sorted_s"] = [f"{t:.4f}" for t in times["auto"]]
-        extra["frames_unsorted_s"] = [f"{t:.4f}" for t in times["off"]]
+            frames.append(time.perf_counter() - t0)
+        extra["frames_s"] = [f"{t:.4f}" for t in frames]
     cfg_off = dataclasses.replace(cfg, kernels="off")
     if plain_frame:
         t0 = time.perf_counter()
@@ -764,10 +763,71 @@ def lanes_phase_inputs(scene, tables):
     return out
 
 
+def percentiles(x):
+    """[p50, p90, p99, max] of a per-ray count (a 1-D integer tensor)."""
+    n = x.numel()
+    if n == 0:
+        return [0, 0, 0, 0]
+    xs = torch.sort(x).values
+    return [int(xs[min(n - 1, int(q * n))]) for q in (0.5, 0.9, 0.99)] + [
+        int(xs[-1])]
+
+
+def sort_probe(key, live):
+    """The permutation of the JAX package's sorted dispatch (a stable sort
+    by `key`, the lanes that are not live last) and the live mask in that
+    order."""
+    order = torch.argsort(torch.where(live, key, 1 << 20), stable=True)
+    return order, live[order]
+
+
+def grid_key(c, scene, cells):
+    """The position bucket of the sorted dispatch: a cells^3 grid over the
+    union of the meshes' root boxes."""
+    roots = torch.as_tensor(scene.mesh_root, device=c[0].device)
+    lo, hi = scene.bvh_lo[roots].amin(0), scene.bvh_hi[roots].amax(0)
+    top = cells - 0.001
+    inv = top / torch.clamp_min(hi - lo, 1e-6)
+    return sum(torch.clamp((c[a] - lo[a]) * inv[a], 0.0, top)
+               .to(torch.int64) * cells ** (2 - a) for a in range(3))
+
+
+def walk_sorted(scene, o, d, live, tree):
+    """B5 behind the JAX package's sorted ray queue (a probe: the port
+    walks in ray order): rays bucketed by direction octant and an 8^3
+    grid, dead lanes last, walked in that order, the results put back in
+    ray order."""
+    octant = ((d[0] < 0).to(torch.int64) + 2 * (d[1] < 0).to(torch.int64)
+              + 4 * (d[2] < 0).to(torch.int64))
+    perm, live_s = sort_probe(octant * 512 + grid_key(o, scene, 8), live)
+    t_s, tri_s = ktraverse.mesh_closest_hits(
+        scene, tuple(c[perm] for c in o), tuple(c[perm] for c in d), live_s,
+        tables=tree)
+    t, tri = torch.empty_like(t_s), torch.empty_like(tri_s)
+    t[:, perm], tri[:, perm] = t_s, tri_s
+    return t, tri
+
+
+def shadow_sorted(scene, cfg, p, tm, keys, live, tables):
+    """B6 behind the JAX package's position-sorted dispatch (a probe): hit
+    points bucketed on a 16^3 grid, dead lanes last, the factors put back
+    in lane order."""
+    perm, live_s = sort_probe(grid_key(p, scene, 16), live)
+    out_s = kshadow.shadow_factors(
+        scene, cfg, tuple(c[perm] for c in p), tm[perm], keys[perm],
+        cfg.epsilon, live_s, tables=tables.shadow, tree=tables.tree)
+    out = torch.empty_like(out_s)
+    out[:, perm] = out_s
+    return out
+
+
 def walk_phase(label, scene, stats):
     """B5 against its plain version on every lane of one sample's bounce-0
     and bounce-1 rays: (t, tri) must match exactly. The plain walk counts
-    the node visits and triangle tests that the bound is computed from."""
+    the node visits and triangle tests that the bound is computed from,
+    and each ray's (their p50/p90/p99/max). A probe times the same rays
+    behind the JAX package's sorted queue (`walk_sorted`): the kernel's
+    device time and the whole dispatch, sort included."""
     tables = integrator.prepare(scene)
     Nm = scene.mesh_mat.shape[0]
     for b, state, _, _ in lanes_phase_inputs(scene, tables):
@@ -779,6 +839,15 @@ def walk_phase(label, scene, stats):
                                                tables=tables.tree)
 
         t_k, tri_k = run("auto")
+        blocks = ktraverse.BLOCKS
+
+        def run_sorted():
+            return walk_sorted(scene, o, d, live, tables.tree)
+
+        t_s, tri_s = run_sorted()
+        if not (torch.equal(t_s, t_k) and torch.equal(tri_s, tri_k)):
+            raise AssertionError(f"traverse {label} b{b}: the sorted order "
+                                 "changes a result")
         cnt = {}
         t_p, tri_p = ktraverse.mesh_closest_hits_plain(scene, o, d, live,
                                                        tables.tree, cnt)
@@ -798,6 +867,7 @@ def walk_phase(label, scene, stats):
               + tree_bytes(scene, tables.tree, cnt))
         ops = cnt.get("visits", 0) * OPS_VISIT + cnt.get("tests", 0) * OPS_TRI
         bms, by = bound2(nb, ops)
+        lc = cnt["lane_counts"]
         say("B5", scene=label, bounce=b, lanes=o[0].numel(), live=n_live,
             meshes=Nm, tree_nodes=scene.bvh_lo.shape[0],
             triangles=scene.tri_a.shape[0] - 1, mismatches=mism,
@@ -805,10 +875,15 @@ def walk_phase(label, scene, stats):
             visits_per_ray=f"{cnt.get('visits', 0) / max(n_live, 1):.2f}",
             max_visits=cnt.get("max_visits", 0),
             tests_per_ray=f"{cnt.get('tests', 0) / max(n_live, 1):.2f}",
+            visits_p50_p90_p99_max=percentiles(lc[0]),
+            tests_p50_p90_p99_max=percentiles(lc[1]),
             nodes_read=int(cnt["nodes_seen"].sum()),
             leaves_tested=int(cnt["leaves_seen"].sum()),
+            persistent_blocks=blocks,
             ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
             device_ms=device_ms(lambda: run("auto"), 10, "traverse"),
+            sorted_device_ms=device_ms(run_sorted, 10, "traverse"),
+            sorted_dispatch_ms=f"{timed(run_sorted, 10):.4f}",
             bound_ms=f"{bms:.4f}", bound_by=by,
             byte_bound_ms=f"{bound_ms(nb):.4f}")
         stats["traverse"].append(Rec(0.0, ms, pms, bms, by))
@@ -819,8 +894,13 @@ def shadow_phase(label, scene, stats):
     bounce-0 and bounce-1 rays, on all 408,000 lanes, both compat modes:
     the factors must match exactly. The plain megabatch counts the shadow
     rays, table tests, node visits and triangle tests that the bound is
-    computed from."""
+    computed from, and each shadow ray's visits and tests (their
+    p50/p90/p99/max). Probes time the kernel on the same lanes with the
+    live ones first and, on mesh scenes, behind the JAX package's sorted
+    dispatch (`shadow_sorted`: the kernel's device time and the whole
+    dispatch, sort included)."""
     tables = integrator.prepare(scene)
+    meshes = scene.mesh_mat.shape[0] > 0
     for b, state, k1, bkeys in lanes_phase_inputs(scene, tables):
         live = state["active"] & (k1["j"] >= 0)
         p, tm = k1["p"], state["time"]
@@ -832,7 +912,18 @@ def shadow_phase(label, scene, stats):
                     scene, cfg, p, tm, bkeys, cfg.epsilon, live,
                     kernels=mode, tables=tables.shadow, tree=tables.tree)
 
+            def run_sorted():
+                return shadow_sorted(scene, cfg, p, tm, bkeys, live, tables)
+
             got = run("auto")
+            blocks = kshadow.BLOCKS
+            extra = {}
+            if meshes:
+                if not torch.equal(run_sorted(), got):
+                    raise AssertionError(f"shadow {label} b{b} {compat}: "
+                                         "the sorted order changes a factor")
+                extra["sorted_device_ms"] = device_ms(run_sorted, 5, "shadow")
+                extra["sorted_dispatch_ms"] = f"{timed(run_sorted, 5):.4f}"
             cnt = {}
             want = kshadow.shadow_factors_plain(
                 scene, cfg, p, tm, bkeys, cfg.epsilon, live, tables.shadow,
@@ -857,12 +948,12 @@ def shadow_phase(label, scene, stats):
                    + cnt.get("tests", 0) * OPS_TRI)
             bms, by = bound2(nb, ops)
             rays = max(cnt.get("rays", 0), 1)
-            # a probe of what packing the live lanes together costs (the
-            # sorted dispatch of mesh scenes does): the same lanes with
-            # the live ones first
-            perm = torch.argsort((~live).to(torch.int32), stable=True)
-            pargs = (tuple(c[perm] for c in p), tm[perm], bkeys[perm],
-                     cfg.epsilon, live[perm])
+            # a probe of what packing the live lanes together costs: the
+            # same lanes with the live ones first
+            lfirst = torch.argsort((~live).to(torch.int32), stable=True)
+            pargs = (tuple(c[lfirst] for c in p), tm[lfirst], bkeys[lfirst],
+                     cfg.epsilon, live[lfirst])
+            lc = cnt["lane_counts"]
             say("B6", scene=label, bounce=b, compat=compat,
                 lanes=live.numel(), live=int(live.sum()),
                 lights=scene.light_pos.shape[0],
@@ -873,12 +964,16 @@ def shadow_phase(label, scene, stats):
                 visits_per_ray=f"{cnt.get('visits', 0) / rays:.2f}",
                 max_visits=cnt.get("max_visits", 0),
                 tests_per_ray=f"{cnt.get('tests', 0) / rays:.2f}",
+                visits_p50_p90_p99_max=percentiles(lc[0]),
+                tests_p50_p90_p99_max=percentiles(lc[1]),
+                persistent_blocks=blocks,
                 ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
                 device_ms=device_ms(lambda: run("auto"), 5, "shadow"),
                 live_first_device_ms=device_ms(
                     lambda: kshadow.shadow_factors(
                         scene, cfg, *pargs, tables=tables.shadow,
                         tree=tables.tree), 5, "shadow"),
+                **extra,
                 bound_ms=f"{bms:.4f}", bound_by=by,
                 byte_bound_ms=f"{bound_ms(nb):.4f}")
             stats["shadow"].append(Rec(0.0, ms, pms, bms, by))
@@ -959,8 +1054,6 @@ def main():
     launches.update(traverse=mesh_launches["traverse"],
                     shadow=mesh_launches["shadow"])
     profile_phase("flamingo_standin", flam_sb, trainable=())
-    profile_phase("flamingo_standin", flam_sb, trainable=(),
-                  ray_sort="off")
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,

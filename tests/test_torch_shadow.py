@@ -34,6 +34,7 @@ from tracer.scene.builder import Material as JMaterial
 from tracer.scene.builder import SceneBuilder as JSceneBuilder
 from tracer.scene.device import compile_scene as jcompile
 from tracer.scenes import zoo as jzoo
+from tracer_torch.core import rng as trng
 from tracer_torch.core.config import RenderConfig as TConfig
 from tracer_torch.kernels import shadow as tshadow
 from tracer_torch.scene import device as tdevice
@@ -183,3 +184,65 @@ def test_points_on_a_mesh_count_the_self_hit_ties():
     assert diff.any(axis=0).mean() < 0.03
     steps = np.abs(got - want)[diff] * K
     np.testing.assert_allclose(steps, np.round(steps), atol=1e-5)
+
+
+@pytest.mark.parametrize("compat", ["reference", "physical"])
+def test_shadow_walks_stop_at_the_light(compat):
+    """The shadow walk starts with its best t at t_light (the TPU walk's
+    per-lane tmax): on the mesh scene's shadow rays it decides `blocked`
+    (closest raw hit in [eps, t_light)) exactly as the unbounded walk
+    does, returns the unbounded hit wherever that lies below t_light,
+    and visits fewer nodes where the light lies between a point and a
+    mesh. `shadow_factors_plain`'s per-ray counts add up to its totals,
+    and its factors equal the JAX package's."""
+    _, ts = scenes("mesh")
+    p, tm, keys = floor_points(6)
+    # half the points beyond the small light, which then lies between
+    # them and the opaque mesh: their walks stop at the light
+    rs = np.random.RandomState(7)
+    h = N // 2
+    p[:, h:] = np.stack([rs.uniform(5.0, 8.0, N - h),
+                         rs.uniform(1.9, 2.5, N - h),
+                         rs.uniform(0.2, 1.4, N - h)]).astype(np.float32)
+    cfg = TConfig(compat=compat, shadow_rays=K)
+    tables = tshadow.shadow_tables(ts)
+    tree = tshadow.ktraverse.traverse_tables(ts)
+    pt = tuple(torch.from_numpy(c) for c in p)
+    kt = torch.from_numpy(keys.astype(np.int64))
+    light = tables[0]
+    rays = [tshadow._sample_rays(
+        cfg, light[i], pt, trng.salted(kt, trng.SHADOW_LIGHT_POS, i), k)
+        for i in range(light.shape[0]) for k in range(K)]
+    so = tuple(torch.cat([r[0][a] for r in rays]) for a in range(3))
+    sd = tuple(torch.cat([r[1][a] for r in rays]) for a in range(3))
+    tl = torch.cat([r[2] for r in rays])
+    live = torch.ones_like(tl, dtype=torch.bool)
+    eps = 1e-5
+    pruned = 0
+    for m in range(ts.mesh_mat.shape[0]):
+        free, bound = {}, {}
+        t_u, tri_u = tshadow.ktraverse.mesh_walk_plain(ts, so, sd, m, live,
+                                                       tree, free)
+        t_b, tri_b = tshadow.ktraverse.mesh_walk_plain(ts, so, sd, m, live,
+                                                       tree, bound, tmax=tl)
+        np.testing.assert_array_equal(((t_b >= eps) & (t_b < tl)).numpy(),
+                                      ((t_u >= eps) & (t_u < tl)).numpy())
+        below = t_u < tl
+        np.testing.assert_array_equal(t_b[below].numpy(), t_u[below].numpy())
+        np.testing.assert_array_equal(tri_b[below].numpy(),
+                                      tri_u[below].numpy())
+        assert (tri_b[~below] == -1).all()
+        assert (t_b[~below] == tl[~below]).all()
+        pruned += free["visits"] - bound["visits"]
+    assert pruned > 0
+    cnt = {}
+    got = tshadow.shadow_factors_plain(
+        ts, cfg, pt, torch.from_numpy(tm), kt, eps,
+        torch.ones(N, dtype=torch.bool), tables, tree, cnt)
+    L = ts.light_pos.shape[0]
+    assert cnt["rays"] == L * K * N
+    assert cnt["lane_counts"].shape == (2, L * K * N)
+    assert int(cnt["lane_counts"][0].sum()) == cnt["visits"]
+    assert int(cnt["lane_counts"][1].sum()) == cnt["tests"]
+    want, _ = run_both("mesh", compat, p, tm, keys)
+    np.testing.assert_array_equal(got.numpy(), want)

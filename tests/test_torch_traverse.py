@@ -29,13 +29,12 @@ from tracer.render import integrator as jintegrator
 from tracer.scene.builder import Material as JMaterial
 from tracer.scene.builder import SceneBuilder as JSceneBuilder
 from tracer.scene.device import compile_scene as jcompile
-from tracer_torch.core.config import RenderConfig as TConfig
+from tracer.scenes import zoo as jzoo
 from tracer_torch.geometry import primitives as tprim
 from tracer_torch.kernels import intersect as tint
 from tracer_torch.kernels import traverse as ttrav
-from tracer_torch.render import integrator as tintegrator
 from tracer_torch.scene import device as tdevice
-from tracer_torch.testing import add_standin
+from tracer_torch.testing import add_standin, flamingo_standin
 
 N = 257            # not a multiple of any tile (padding paths)
 RTOL = 1e-5
@@ -64,11 +63,17 @@ def two_mesh_builder():
     return sb
 
 
-@functools.lru_cache(maxsize=1)
-def scenes():
+@functools.lru_cache(maxsize=None)
+def named_scenes(name):
     # the numpy BVH builder: test_torch_accel.py holds the native ones
-    js = jcompile(two_mesh_builder(), use_native=False)
+    sb = (two_mesh_builder() if name == "two_mesh"
+          else flamingo_standin(jzoo, 2_000))
+    js = jcompile(sb, use_native=False)
     return js, port_scene(js)
+
+
+def scenes():
+    return named_scenes("two_mesh")
 
 
 def rays(kind, seed=0):
@@ -117,6 +122,11 @@ def test_walk_matches_jax(kind):
     np.testing.assert_allclose(t[:, live], jt[:, live], rtol=RTOL, atol=0)
     assert (tri[:, live] >= 0).sum() > N // 8      # the rays hit meshes
     assert cnt["visits"] > 0 and cnt["tests"] > 0
+    # each live ray's counts over both meshes add up to the totals
+    assert cnt["lane_counts"].shape == (2, int(live.sum()))
+    assert int(cnt["lane_counts"][0].sum()) == cnt["visits"]
+    assert int(cnt["lane_counts"][1].sum()) == cnt["tests"]
+    assert int(cnt["lane_counts"][0].min()) >= 2    # a root box per mesh
     # the same walk on the scene's own triangles (`triangle_test`), as the
     # JAX package's per-ray walk computes it: bit for bit
     t2, tri2 = tprim.mesh_closest_hits(planar(o), planar(d), ts,
@@ -130,26 +140,105 @@ def test_walk_matches_jax(kind):
 
 
 def test_traverse_tables_match_jax():
+    """The TPU kernel's tables, but for the spare column 6 of nodes_f, which
+    the port fills with each leaf's count of real triangles
+    (`test_leaf_count_column`)."""
     js, ts = scenes()
     jn_f, jn_i, jleaf = (np.asarray(x) for x in jtrav.traverse_tables(js))
     tn_f, tn_i, tleaf = (x.numpy() for x in ttrav.traverse_tables(ts))
-    np.testing.assert_array_equal(tn_f, jn_f)
+    assert tn_f.shape == jn_f.shape
+    keep = [0, 1, 2, 3, 4, 5, 7]
+    np.testing.assert_array_equal(tn_f[:, keep], jn_f[:, keep])
+    assert (jn_f[:, 6] == 0).all()
     np.testing.assert_array_equal(tn_i, jn_i)
     assert tleaf.shape == jleaf.shape and tleaf.dtype == jleaf.dtype
     np.testing.assert_allclose(tleaf, jleaf, rtol=1e-5, atol=1e-6)
 
 
-def test_sorted_queue_equals_unsorted():
-    """`integrator._mesh_hits_sorted` (octant + grid key, dead lanes last,
-    stable argsort) returns what the unsorted walk does, lane by lane."""
-    _, ts = scenes()
-    o, d, live = rays("incoherent", seed=3)
+@pytest.mark.parametrize("name", ["two_mesh", "flamingo_standin"])
+def test_leaf_count_column(name):
+    """Column 6 of nodes_f holds a leaf's count of non-sentinel slots (0 at
+    an inner node), and the real triangles come first in each leaf row, so
+    a walk that stops at the count tests what one that stops at the first
+    padding slot does."""
+    _, ts = named_scenes(name)
+    nodes_f, nodes_i, leaf = ttrav.traverse_tables(ts)
+    sentinel = ts.tri_a.shape[0] - 1
+    LW = ts.leaf_width
+    tids = leaf.reshape(-1, LW, ttrav.TRI_COLS)[:, :, 17].to(torch.int64)
+    real = tids != sentinel
+    row = nodes_i[:, 0].long()
+    is_leaf = row >= 0
+    assert is_leaf.sum() > 4 and (~is_leaf).sum() > 4
+    want = real.sum(1)[row[is_leaf]].to(torch.float32)
+    np.testing.assert_array_equal(nodes_f[is_leaf, 6].numpy(), want.numpy())
+    assert (nodes_f[~is_leaf, 6] == 0).all() and (nodes_f[:, 7] == 0).all()
+    assert (want >= 1).all() and (want <= LW).all() and (want < LW).any()
+    # padding only after the real slots
+    first_pad = torch.where(real, LW, torch.arange(LW)).amin(1)
+    assert (first_pad == real.sum(1)).all()
+
+
+def bounds_for(t, live, seed):
+    """Seeded per-lane bounds: around half of each hit's distance below
+    it and half above, and a seeded distance on the misses."""
+    rs = np.random.RandomState(seed)
+    f = rs.uniform(0.5, 1.5, t.shape[-1]).astype(np.float32)
+    miss = rs.uniform(0.5, 12.0, t.shape[-1]).astype(np.float32)
+    return np.where(t < 1e38, np.minimum(t, 1e30) * f, miss).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["coherent", "incoherent"])
+@pytest.mark.parametrize("name", ["two_mesh", "flamingo_standin"])
+def test_bounded_walk(name, kind):
+    """`skip_walk` with a per-lane starting bound (the shadow walk's
+    t_light): the unbounded walk's (t, tri) wherever that t is below the
+    bound, (bound, -1) elsewhere, on every mesh; against the port's own
+    unbounded walk bit for bit and against the JAX package's jnp walk to
+    its tolerance. The bound prunes: fewer node visits."""
+    js, ts = named_scenes(name)
+    o, d, live = rays(kind, seed=11)
+    jt, jtri = jprim.mesh_closest_hits(jnp.asarray(o), jnp.asarray(d), js,
+                                       1e-5)
+    jt, jtri = np.asarray(jt).T, np.asarray(jtri).T        # [Nm, N]
     tables = ttrav.traverse_tables(ts)
-    args = (planar(o), planar(d), torch.from_numpy(live))
-    t_s, tri_s = tintegrator._mesh_hits_sorted(ts, TConfig(), *args, tables)
-    t_u, tri_u = ttrav.mesh_closest_hits(ts, *args, tables=tables)
-    np.testing.assert_array_equal(t_s.numpy(), t_u.numpy())
-    np.testing.assert_array_equal(tri_s.numpy(), tri_u.numpy())
+    lv = torch.from_numpy(live)
+    n_below = n_beyond = 0      # hits below and beyond their bounds
+    pruned = 0                  # node visits the bounds saved
+    for m in range(ts.mesh_mat.shape[0]):
+        free, cfree = {}, torch.zeros((2, N), dtype=torch.int64)
+        t_u, tri_u = ttrav.mesh_walk_plain(ts, planar(o), planar(d), m, lv,
+                                           tables, free, lane_counts=cfree)
+        t_u, tri_u = t_u.numpy(), tri_u.numpy()
+        bound = bounds_for(t_u, live, seed=12 + m)
+        cnt, cb = {}, torch.zeros((2, N), dtype=torch.int64)
+        t_b, tri_b = ttrav.mesh_walk_plain(
+            ts, planar(o), planar(d), m, lv, tables, cnt,
+            tmax=torch.from_numpy(bound), lane_counts=cb)
+        t_b, tri_b = t_b.numpy(), tri_b.numpy()
+        below = live & (t_u < bound)
+        beyond = live & ~below
+        n_below += int((below & (tri_u >= 0)).sum())
+        n_beyond += int((beyond & (tri_u >= 0)).sum())
+        np.testing.assert_array_equal(t_b[below], t_u[below])
+        np.testing.assert_array_equal(tri_b[below], tri_u[below])
+        np.testing.assert_array_equal(t_b[beyond], bound[beyond])
+        assert (tri_b[beyond] == -1).all()
+        assert (tri_b[~live] == -1).all() and (t_b[~live] == 3.0e38).all()
+        # the JAX reference walk, below each bound
+        jb = below & (jt[m] < bound)
+        np.testing.assert_array_equal(tri_b[jb], jtri[m][jb])
+        np.testing.assert_allclose(t_b[jb], jt[m][jb], rtol=RTOL, atol=0)
+        assert (jb == below).mean() > 0.99
+        # the per-lane counts add up to the walk's totals, and the bound
+        # prunes
+        assert int(cb[0].sum()) == cnt["visits"]
+        assert int(cb[1].sum()) == cnt.get("tests", 0)
+        assert int(cfree[0].sum()) == free["visits"]
+        assert (cb <= cfree).all() and cnt["visits"] <= free["visits"]
+        pruned += free["visits"] - cnt["visits"]
+        assert (cb[:, ~live] == 0).all()
+    assert n_below > 4 and n_beyond > 4 and pruned > 0
 
 
 def test_cuda_needs_cuda_tensors():

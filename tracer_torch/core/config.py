@@ -65,6 +65,9 @@ class RenderConfig:
     # rays by direction octant + coarse position before the packet walk
     # (coherent packets prune; measured 3.5x on backrooms_pool whose
     # post-bounce rays are fully incoherent), "off" walks in ray order.
+    # Kept (and validated) for parity with the JAX package's config; it
+    # has no effect in the port, whose GPU kernels walk each ray on its
+    # own thread and always take rays in ray order.
     ray_sort: str = "auto"
 
     # Packed-u32 / pair-packed texture-atlas fast paths. The packed twins

@@ -192,7 +192,7 @@ def slab_hit(o, inv, lo, hi, tmin, tmax):
 
 
 def skip_walk(o, d, lo, hi, leaf_start, skip, root, end, leaf_test,
-              live=None, stats=None):
+              live=None, stats=None, tmax=None, lane_counts=None):
     """Closest hit of each ray over one mesh's node range [root, end) by
     the skip-link preorder walk, all lanes in lockstep.
 
@@ -200,13 +200,23 @@ def skip_walk(o, d, lo, hi, leaf_start, skip, root, end, leaf_test,
     leaf) and skip [Bn] (the next node after a miss or a leaf). A lane at
     node i tests the box against (0, its best t); a hit leaf calls
     `leaf_test(lanes, leaf_start[i])`, which returns each lane's first
-    closest (t, tri) over the leaf (INF / -1 where none); a strictly closer
-    t replaces the best. Lanes with `live` false return (INF, -1).
+    closest (t, tri) over the leaf (INF / -1 where none) and its count of
+    real triangles; a strictly closer t replaces the best. Lanes with
+    `live` false return (INF, -1).
+
+    `tmax` [N] (optional): each lane's starting best t, the TPU walk's
+    per-lane bound (`tracer/kernels/traverse.py:97-99`). A box entered at
+    or beyond it is pruned and only hits strictly below it count, so a
+    live lane returns the unbounded walk's (t, tri) where that t is below
+    its bound and (tmax, -1) elsewhere.
+
     `stats`, a dict, gains the node visits ("visits") and real triangles
     tested ("tests") of this walk, keeps the most nodes one lane visited
     ("max_visits": the loop's length), and marks in [Bn] bool masks the
     nodes any lane read ("nodes_seen") and the leaves whose triangles any
-    lane tested ("leaves_seen")."""
+    lane tested ("leaves_seen"). `lane_counts` ([2, N] int64, optional)
+    gains each lane's node visits (row 0) and real triangles tested
+    (row 1)."""
     N = o[0].shape[0]
     dev = o[0].device
     if stats is not None:
@@ -219,6 +229,8 @@ def skip_walk(o, d, lo, hi, leaf_start, skip, root, end, leaf_test,
     idx = torch.arange(N, device=dev)
     if live is not None:
         idx = idx[live]
+    if tmax is not None:
+        bt[idx] = tmax[idx]
     if root >= end:
         idx = idx[:0]
     node = torch.full((idx.numel(),), root, dtype=torch.int64, device=dev)
@@ -237,11 +249,15 @@ def skip_walk(o, d, lo, hi, leaf_start, skip, root, end, leaf_test,
             stats["visits"] = stats.get("visits", 0) + idx.numel()
             stats["nodes_seen"][node] = True
             stats["leaves_seen"][node[do]] = True
+        if lane_counts is not None:
+            lane_counts[0, idx] += 1
         if bool(do.any()):
             lanes = idx[do]
-            t, tri, n_tests = leaf_test(lanes, ls[do])
+            t, tri, n_real = leaf_test(lanes, ls[do])
             if stats is not None:
-                stats["tests"] = stats.get("tests", 0) + int(n_tests)
+                stats["tests"] = stats.get("tests", 0) + int(n_real.sum())
+            if lane_counts is not None:
+                lane_counts[1, lanes] += n_real
             better = t < bt[lanes]
             bt[lanes] = torch.where(better, t, bt[lanes])
             btri[lanes] = torch.where(better, tri, btri[lanes])
@@ -281,8 +297,7 @@ def bvh_closest_hit(o, d, scene, root: int, end: int, leaf_width: int = 4,
                    for v in (scene.tri_a, scene.tri_b, scene.tri_c))
         t, ok = triangle_test(tuple(x[lanes][:, None] for x in o),
                               tuple(x[lanes][:, None] for x in d), a, b, c)
-        return (*leaf_first_min(t, ok, tids),
-                int((tids != T).sum()))
+        return (*leaf_first_min(t, ok, tids), (tids != T).sum(1))
 
     return skip_walk(o, d, scene.bvh_lo, scene.bvh_hi,
                      scene.bvh_leaf_start, scene.bvh_skip, root, end,

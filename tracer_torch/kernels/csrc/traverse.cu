@@ -1,6 +1,6 @@
 // BVH walk kernel for Hopper: the closest triangle hit (t, tri) of every
-// ray in every mesh, one thread per ray, each walking its own stackless
-// skip-link preorder (bvh.cuh) over each mesh's node range.
+// ray in every mesh. Each (live ray, mesh) is a work item that one thread
+// walks alone through the mesh's stackless skip-link preorder (bvh.cuh).
 //
 // Replaces the TPU kernel tracer/kernels/traverse.py::mesh_closest_hits
 // (Pallas; body _kernel at traverse.py:185-206, walk packet_walk at
@@ -9,12 +9,23 @@
 // counter, so each ray takes only its own path. The plain PyTorch version
 // is tracer_torch/kernels/traverse.py::mesh_closest_hits_plain.
 //
-// Bound: the walk. A ray reads 28 B and writes 8 B per mesh; each node
-// visit is a dependent 40 B load (L2-resident: a 53k-triangle tree is
-// ~7 MB) and a slab test, each leaf up to leaf_width triangle tests of
-// 80 B each. Warps diverge where their rays take different paths; the
-// leaf loop ends at the first padding slot and culls back faces before
-// the barycentric test.
+// Bound: the longest walks, not the bytes. A ray reads 28 B and writes 8 B
+// per mesh, and the tree stays in L2, but every step of a walk waits on
+// L2 loads, and a few rays (those near the mesh, in a few screen rows)
+// walk 25-50x the mean. With one thread per ray over the whole batch, each
+// wave of blocks lasted as long as its longest warp, and a lane at a leaf
+// held its warp through up to 16 dependent slot loads. The design, two
+// kernels per call:
+// - traverse_roots, one thread per (ray, mesh): the slab test of the
+//   mesh's root box (from shared memory, no load). A miss, most rays, is
+//   written at once; a hit is appended to a task list (one atomic per
+//   warp).
+// - traverse_walk, one wave of persistent blocks whose lanes take the next
+//   task from a work counter as soon as their walk ends (tt::TaskQueue),
+//   so warps stay full until the list drains and the stacked tails become
+//   one: the longest single walk. Each loop turn a lane takes one unit, a
+//   node or a leaf slot whose loads were issued a turn ahead (tt::Walk),
+//   so no lane holds its warp through a whole leaf.
 //
 // Outputs: out_t [n_meshes, n] f32 (INF on a miss), out_tri [n_meshes, n]
 // i32 (-1 on a miss); lanes with live false get (INF, -1).
@@ -33,7 +44,10 @@ struct TraverseArgs {
   const float* leaf;
   float* out_t;
   int* out_tri;
-  int n, n_meshes, leaf_width, sentinel;
+  int* tasks;  // [n_meshes * n] task list: m * n + i
+  int* work;   // [2]: the task count and the walk's work counter, zeroed
+  int n, n_meshes, leaf_width;
+  int blocks;  // written by the launcher: the walk's persistent blocks
   int root[MAX_MESHES], end[MAX_MESHES];
 };
 
@@ -41,36 +55,93 @@ namespace {
 
 constexpr int THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS) traverse_kernel(TraverseArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const bool live = a.live[i] != 0;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-  if (live) {
-    ox = a.ox[i]; oy = a.oy[i]; oz = a.oz[i];
-    dx = a.dx[i]; dy = a.dy[i]; dz = a.dz[i];
-  }
+__device__ __forceinline__ tt::Tree tree(const TraverseArgs& a) {
+  return tt::Tree{reinterpret_cast<const float4*>(a.nodes_f),
+                  reinterpret_cast<const int2*>(a.nodes_i),
+                  reinterpret_cast<const float4*>(a.leaf), a.leaf_width};
+}
+
+__device__ __forceinline__ void load_roots(const TraverseArgs& a,
+                                           tt::Node* roots) {
+  const tt::Tree tr = tree(a);
+  for (int m = threadIdx.x; m < a.n_meshes; m += blockDim.x)
+    if (a.root[m] < a.end[m]) roots[m] = tt::load_node(tr, a.root[m]);
+  __syncthreads();
+}
+
+__device__ __forceinline__ tt::Ray load_ray(const TraverseArgs& a, int i) {
+  tt::Ray r;
+  r.ox = a.ox[i]; r.oy = a.oy[i]; r.oz = a.oz[i];
+  r.dx = a.dx[i]; r.dy = a.dy[i]; r.dz = a.dz[i];
   // the slab test's 1/d, hoisted out of the walk (the same value)
-  const float invx = 1.0f / dx, invy = 1.0f / dy, invz = 1.0f / dz;
-  const tt::Tree tr{reinterpret_cast<const float4*>(a.nodes_f),
-                    reinterpret_cast<const int2*>(a.nodes_i),
-                    reinterpret_cast<const float4*>(a.leaf), a.leaf_width,
-                    a.sentinel};
-  for (int m = 0; m < a.n_meshes; ++m) {
-    float bt = tt::INF;
-    int btri = -1;
-    if (live)
-      tt::walk(tr, a.root[m], a.end[m], ox, oy, oz, dx, dy, dz, invx, invy,
-               invz, &bt, &btri);
-    a.out_t[(size_t)m * a.n + i] = bt;
-    a.out_tri[(size_t)m * a.n + i] = btri;
+  r.invx = 1.0f / r.dx; r.invy = 1.0f / r.dy; r.invz = 1.0f / r.dz;
+  return r;
+}
+
+__global__ void __launch_bounds__(THREADS) traverse_roots(TraverseArgs a) {
+  __shared__ tt::Node roots[MAX_MESHES];
+  load_roots(a, roots);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = t < (long long)a.n * a.n_meshes;
+  const int m = valid ? (int)(t / a.n) : 0;
+  const int i = valid ? (int)(t - (long long)m * a.n) : 0;
+  bool task = false;
+  if (valid) {
+    if (a.live[i] && a.root[m] < a.end[m])
+      task = tt::slab(roots[m], load_ray(a, i), tt::INF);
+    if (!task) {
+      a.out_t[t] = tt::INF;
+      a.out_tri[t] = -1;
+    }
+  }
+  const int at = tt::warp_append(task ? 1 : 0, a.work);
+  if (task) a.tasks[at] = (int)t;
+}
+
+__global__ void __launch_bounds__(THREADS) traverse_walk(TraverseArgs a) {
+  __shared__ tt::Node roots[MAX_MESHES];
+  load_roots(a, roots);
+  const tt::Tree tr = tree(a);
+  tt::TaskQueue q(a.work + 1, *(volatile int*)a.work);
+  bool busy = false;
+  int out = 0;
+  tt::Walk w;
+  tt::Ray r;
+  float bt = tt::INF;
+  int btri = -1;
+  for (;;) {
+    int task = 0;
+    const bool fresh = q.take(!busy, task);
+    if (__ballot_sync(tt::FULL, busy || fresh) == 0) break;
+    if (fresh) {  // the walk goes on past the root box the ray entered
+      busy = true;
+      out = a.tasks[task];
+      const int m = out / a.n;
+      r = load_ray(a, out - m * a.n);
+      w.begin(tr, tt::after_root(roots[m], a.root[m], a.end[m], true),
+              a.end[m]);
+      bt = tt::INF;
+      btri = -1;
+    }
+    if (!busy) continue;
+    if (!w.done()) w.unit(tr, r, bt, btri);
+    if (w.done()) {
+      a.out_t[out] = bt;
+      a.out_tri[out] = btri;
+      busy = false;
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int tt_traverse(const TraverseArgs* args, void* stream) {
-  const int blocks = (args->n + THREADS - 1) / THREADS;
-  traverse_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(*args);
+extern "C" int tt_traverse(TraverseArgs* args, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long items = (long long)args->n * args->n_meshes;
+  traverse_roots<<<(int)((items + THREADS - 1) / THREADS), THREADS, 0,
+                   st>>>(*args);
+  const int blocks = tt::persistent_blocks(traverse_walk, THREADS, 0);
+  args->blocks = blocks;
+  traverse_walk<<<blocks, THREADS, 0, st>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,12 @@ occluder (spheres, quads and meshes); the factor is 1 - mean_k(blocked).
 
 Replaces the TPU kernel `tracer/kernels/shadow.py::shadow_factors`
 (Pallas, `pl.pallas_call` at shadow.py:533) with the CUDA kernel
-`csrc/shadow.cu`, one thread per hit point. The semantics are those of the
+`csrc/shadow.cu`: one work item per (hit point, light, sample), in two
+CUDA kernels per call: a pass that draws every sample's ray, tests the
+sphere and quad tables and the meshes' root boxes and ends most samples,
+then persistent threads that take the remaining samples from a work
+counter and walk them; each sample is counted exactly in an int32 word
+per (light, hit point). The semantics are those of the
 JAX package's jnp path (`integrator._shadow_factor_jnp` and
 `_shadow_blocked_p`), which `shadow_factors_plain` ports as a [K*N]
 megabatch per light, with the same expressions in the same order.
@@ -20,14 +25,18 @@ A mesh blocks when its closest raw hit lies in [eps, t_light) and its draw
 exceeds its transparency. The TPU kernel shares one packet walk among the
 K samples of a light (its K-amortised union walk, whose unguarded
 reciprocals are ROADMAP Queue C's); here each sample's ray walks on its
-own (`bvh.cuh`), and the kernel skips a mesh's walk where it cannot change
-the result: the sample is already blocked, or the mesh's draw is at most
-its transparency.
+own (`bvh.cuh`), starting with its best t at t_light (the TPU walk's
+per-lane `tmax`: a hit at or beyond the light never blocks), and the
+kernel skips a mesh's walk where it cannot change the result: the sample
+is already blocked, or the mesh's draw is at most its transparency. The
+closest hit still decides, so the walk has no any-hit exit: a hit in
+[0, eps) unblocks the sample (the reference's eps quirk).
 
-What bounds it on an H100: operations and the walks, not bytes. A hit
-point reads 24 B and writes 4 B per light; per light it traces K rays,
-each tested against every sphere and quad (from shared memory) and walked
-through every mesh's BVH (`chip_smoke.py` counts the tests and visits).
+What bounds it on an H100: the walks' chains of dependent L2 loads, not
+bytes. A hit point reads 24 B and writes 4 B per light; per light it
+traces K rays, each tested against every sphere and quad (from shared
+memory) and walked through every mesh's BVH (`chip_smoke.py` counts the
+tests, and the visits and triangle tests of each shadow ray).
 
 Lanes with `live` false return 1.0.
 """
@@ -46,6 +55,7 @@ from tracer_torch.kernels import traverse as ktraverse
 
 GLASS = 1
 LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
+BLOCKS = 0    # persistent blocks of the last launch (one wave)
 
 
 def shadow_tables(scene):
@@ -124,11 +134,13 @@ def shadow_factors_plain(scene, cfg, p, time, keys, eps, live, tables,
                          tree=None, stats=None):
     """The plain PyTorch version: per light, the K samples of every live
     lane as one megabatch, the table candidates, the meshes' closest hits
-    (`traverse.mesh_walk_plain`, for the samples whose result a walk can
-    change, as the kernel does), the Bernoulli draws, and
-    1 - mean_k(blocked). `stats`, a dict, gains the shadow rays ("rays"),
-    the sphere and quad tests a sample needs before it is blocked
-    ("table_tests") and the walks' counts (`primitives.skip_walk`)."""
+    below t_light (`traverse.mesh_walk_plain` bounded by each sample's
+    t_light, for the samples whose result a walk can change, as the kernel
+    does), the Bernoulli draws, and 1 - mean_k(blocked). `stats`, a dict,
+    gains the shadow rays ("rays"), the sphere and quad tests a sample
+    needs before it is blocked ("table_tests"), the walks' counts
+    (`primitives.skip_walk`) and "lane_counts": [2, rays] int64, each
+    shadow ray's node visits and real triangle tests over the meshes."""
     light, sph, quad, mesh = tables
     L, K = light.shape[0], cfg.shadow_rays
     S, Q = sph.shape[0], quad.shape[0]
@@ -142,6 +154,7 @@ def shadow_factors_plain(scene, cfg, p, time, keys, eps, live, tables,
     pl = tuple(c[idx] for c in p)
     tm = time[idx].repeat(K)
     kl = keys[idx]
+    per_light = [torch.zeros((2, 0), dtype=torch.int64, device=p[0].device)]
     for i in range(L):
         skeys = rng.salted(kl, rng.SHADOW_LIGHT_POS, i)
         bkey = rng.salted(kl, rng.SHADOW_BERNOULLI, i)
@@ -172,20 +185,27 @@ def shadow_factors_plain(scene, cfg, p, time, keys, eps, live, tables,
             count_test()
             blocked |= ok & (t < tl) & (rng.lane_uniform(bk, S + q)
                                         > quad[q, 19])
+        counts = (torch.zeros((2, K * n), dtype=torch.int64, device=tl.device)
+                  if stats is not None else None)
         for m in range(mesh.shape[0]):
             # a walk changes only samples not yet blocked whose draw
-            # exceeds the mesh's transparency: the others skip it
+            # exceeds the mesh's transparency: the others skip it. A hit
+            # at or beyond t_light never blocks, so the walk starts there
             draw = rng.lane_uniform(bk, S + Q + m) > mesh[m]
             t_raw, _ = ktraverse.mesh_walk_plain(scene, so, sd, m,
-                                                 draw & ~blocked, tree, stats)
+                                                 draw & ~blocked, tree, stats,
+                                                 tmax=tl, lane_counts=counts)
             blocked |= (t_raw >= eps) & (t_raw < tl) & draw
         if stats is not None:
             stats["rays"] = stats.get("rays", 0) + K * n
+            per_light.append(counts)
         # 1 - mean_k: jnp.mean compiles to the sum times f32(1/K) (XLA
         # turns a division by a constant into a reciprocal multiply)
         inv_k = float(np.float32(1.0) / np.float32(K))
         out[i, idx] = 1.0 - blocked.to(torch.float32).reshape(K, n).sum(0) \
             * inv_k
+    if stats is not None:
+        stats["lane_counts"] = torch.cat(per_light, dim=1)
     return out
 
 
@@ -193,9 +213,10 @@ class _Args(ctypes.Structure):
     """Mirror of `ShadowArgs` in csrc/shadow.cu (same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "px", "py", "pz", "tm", "key", "live", "light", "sph", "quad",
-        "mesh", "nodes_f", "nodes_i", "leaf", "out")] + [
+        "mesh", "nodes_f", "nodes_i", "leaf", "out", "counts", "tasks",
+        "work")] + [
         ("n", ctypes.c_int), ("n_meshes", ctypes.c_int),
-        ("leaf_width", ctypes.c_int), ("sentinel", ctypes.c_int),
+        ("leaf_width", ctypes.c_int), ("blocks", ctypes.c_int),
         ("root", ctypes.c_int * ktraverse.MAX_MESHES),
         ("end", ctypes.c_int * ktraverse.MAX_MESHES),
         ("L", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
@@ -209,15 +230,20 @@ _MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
 
 def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
     from tracer_torch.kernels import _build
-    global LAUNCHES
+    global LAUNCHES, BLOCKS
     light, sph, quad, mesh = tables
     dev = p[0].device
     N = p[0].shape[0]
     L, S, Q, Nm = light.shape[0], sph.shape[0], quad.shape[0], mesh.shape[0]
     S_real, Q_real = min(scene.n_sph_real, S), min(scene.n_quad_real, Q)
+    K = cfg.shadow_rays
     if (L * 4 + S_real * 9 + Q_real * 20 + Nm) * 4 > _MAX_SMEM:
         raise ValueError("shadow_factors: scene tables exceed the kernel's "
                          f"{_MAX_SMEM} B of shared memory")
+    if not 0 < K < 2 ** 16:
+        raise ValueError("shadow_factors: the kernel counts 1 to 65535 "
+                         f"samples per light, got shadow_rays={K}")
+    ktraverse.check_items("shadow", L * N * K)
     f32 = torch.float32
     a = _Args()
     for name, t in zip(("px", "py", "pz"), p):
@@ -233,14 +259,22 @@ def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
         a.mesh = kc.check("mesh", mesh, f32, (Nm,), dev)
         ktraverse.fill_tree_args(a, scene, tree, dev)
     out = torch.empty((L, N), dtype=f32, device=dev)
-    a.out = out.data_ptr()
+    # the (light, lane) sample counts, then the task count and the walk's
+    # work counter, all zeroed in one fill; the samples to walk (at most
+    # all of them)
+    counts = torch.zeros((L * N + 2,), dtype=torch.int32, device=dev)
+    tasks = torch.empty((L * N * K if Nm > 0 else 1, 2), dtype=torch.int32,
+                        device=dev)
+    a.out, a.counts = out.data_ptr(), counts.data_ptr()
+    a.tasks, a.work = tasks.data_ptr(), counts[L * N:].data_ptr()
     a.n, a.n_meshes = N, Nm
     a.L, a.S, a.S_real, a.Q, a.Q_real = L, S, S_real, Q, Q_real
-    a.K, a.ref = cfg.shadow_rays, int(cfg.compat == "reference")
+    a.K, a.ref = K, int(cfg.compat == "reference")
     a.eps, a.offset_eps = float(eps), float(cfg.epsilon)
     if N > 0 and L > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().tt_shadow(ctypes.addressof(a), stream)
         kc.raise_on_error("shadow", err)
         LAUNCHES += 1
+        BLOCKS = a.blocks
     return out

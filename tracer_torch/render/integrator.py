@@ -2,13 +2,16 @@
 `tracer/render/integrator.py`) and its record-replay gradient.
 
 Each bounce is up to four kernels, in this order: on mesh scenes the BVH
-walk `traverse.mesh_closest_hits` (closest raw hit per ray and mesh, over
-a ray queue sorted by direction octant and position when a tree has 4096
-nodes or more); `first_hits` (closest hit over spheres, quads and those
-mesh hits + winner detail + pair-atlas texel index); on lit scenes
+walk `traverse.mesh_closest_hits` (closest raw hit per ray and mesh);
+`first_hits` (closest hit over spheres, quads and those mesh hits +
+winner detail + pair-atlas texel index); on lit scenes
 `shadow.shadow_factors` (the soft-shadow factor of every light at each
-live hit point, over hit points sorted by position on mesh scenes); and
-`shade_scatter` (texels, emission, lighting, BSDF scatter, state update).
+live hit point); and `shade_scatter` (texels, emission, lighting, BSDF
+scatter, state update). Rays and hit points go to the walk and the
+shadow kernels in ray order: the JAX package's sorted queues
+(`cfg.ray_sort`) let a TPU packet share one walk, but each GPU thread
+walks its own ray, and on the H100 the sorted dispatch cost more than it
+saved (PERF.md, section 6), so `ray_sort` has no effect in the port.
 `lax.scan` over bounces becomes a Python loop with the final bounce
 specialised the same way: it writes only `acc`, and it skips the texture
 fetch when the scene has no lights and no emissive TEX_IMAGE material
@@ -48,8 +51,6 @@ from tracer_torch.kernels import shade as kshade
 from tracer_torch.kernels import shadow as kshadow
 from tracer_torch.kernels import traverse as ktraverse
 from tracer_torch.render import replay_bwd
-
-SORT_MIN_NODES = 4096   # trees at least this deep walk a sorted ray queue
 
 
 def check_scene(scene, cfg: RenderConfig):
@@ -91,84 +92,15 @@ def prepare(scene):
          else None))
 
 
-def _sort_order(key, live):
-    """A stable argsort of `key` with the lanes that are not live last, and
-    the live mask of the sorted queue (a prefix)."""
-    key = torch.where(live, key, 1 << 20)
-    order = torch.argsort(key, stable=True)
-    n_live = live.sum()
-    return order, torch.arange(key.shape[0], device=key.device) < n_live
-
-
-def _grid_bucket(c, lo, inv, top):
-    """The coarse grid cell of coordinate c over [lo, lo + top / inv)."""
-    return torch.clamp((c - lo) * inv, 0.0, top).to(torch.int64)
-
-
-def _mesh_bounds(scene):
-    """The union of the meshes' root boxes."""
-    roots = torch.as_tensor(scene.mesh_root, device=scene.device)
-    return (scene.bvh_lo[roots].amin(0), scene.bvh_hi[roots].amax(0))
-
-
-def _mesh_hits_sorted(scene, cfg: RenderConfig, o, d, active, tree):
-    """The BVH walk over a sorted ray queue (the port of
-    `tracer/render/integrator.py::_mesh_hits_sorted`): rays bucketed by
-    direction octant and an 8^3 grid over the meshes' bounds, the lanes
-    that are not active last, walk coherent subtrees together. The walk's
-    result for a lane depends only on that lane's ray, so sorting and
-    unsorting returns what the unsorted walk does. Returns (t, tri)
-    [Nm, N] in ray order."""
-    lo, hi = _mesh_bounds(scene)
-    inv = 7.999 / torch.clamp_min(hi - lo, 1e-6)
-    octant = ((d[0] < 0).to(torch.int64) + 2 * (d[1] < 0).to(torch.int64)
-              + 4 * (d[2] < 0).to(torch.int64))
-    pos = sum(_grid_bucket(o[a], lo[a], inv[a], 7.999) * 8 ** (2 - a)
-              for a in range(3))
-    order, lv_s = _sort_order(octant * 512 + pos, active)
-    t_s, tri_s = ktraverse.mesh_closest_hits(
-        scene, tuple(c[order] for c in o), tuple(c[order] for c in d),
-        live=lv_s, kernels=cfg.kernels, tables=tree)
-    t, tri = torch.empty_like(t_s), torch.empty_like(tri_s)
-    t[:, order], tri[:, order] = t_s, tri_s
-    return t, tri
-
-
 def _shadow_factors_all(scene, cfg: RenderConfig, p, time, keys, live,
                         tables: FrameTables):
     """Per-light soft-shadow factors [L, N] of the hit points p (None
-    without lights): the shadow kernel, over hit points sorted by position
-    on mesh scenes (`_shadow_factors_sorted`)."""
+    without lights)."""
     if scene.light_pos.shape[0] == 0:
         return None
-    if scene.mesh_mat.shape[0] > 0 and cfg.ray_sort != "off":
-        return _shadow_factors_sorted(scene, cfg, p, time, keys, live,
-                                      tables)
     return kshadow.shadow_factors(scene, cfg, p, time, keys, cfg.epsilon,
                                   live, kernels=cfg.kernels,
                                   tables=tables.shadow, tree=tables.tree)
-
-
-def _shadow_factors_sorted(scene, cfg: RenderConfig, p, time, keys, live,
-                           tables: FrameTables):
-    """The shadow kernel over hit points bucketed on a 16^3 grid over the
-    meshes' bounds, dead lanes last (the port of `tracer/render/
-    integrator.py::_shadow_factors_sorted`): neighbouring threads then
-    shoot nearby rays toward the same light and walk the same subtrees.
-    Each lane's factor depends only on its own inputs, so the result is
-    the unsorted one."""
-    lo, hi = _mesh_bounds(scene)
-    inv = 15.999 / torch.clamp_min(hi - lo, 1e-6)
-    key = sum(_grid_bucket(p[a], lo[a], inv[a], 15.999) * 16 ** (2 - a)
-              for a in range(3))
-    order, lv_s = _sort_order(key, live)
-    out_s = kshadow.shadow_factors(
-        scene, cfg, tuple(c[order] for c in p), time[order], keys[order],
-        cfg.epsilon, lv_s, kernels=cfg.kernels, tables=tables.shadow,
-        tree=tables.tree)
-    out = torch.empty_like(out_s)
-    out[:, order] = out_s
-    return out
 
 
 def _init_state(o, d, time):
@@ -204,14 +136,9 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
     o, d, active = state["o"], state["d"], state["active"]
     t_raw = tri_raw = None
     if scene.mesh_mat.shape[0] > 0:
-        if (cfg.ray_sort != "off"
-                and scene.bvh_lo.shape[0] >= SORT_MIN_NODES):
-            t_raw, tri_raw = _mesh_hits_sorted(scene, cfg, o, d, active,
-                                               tables.tree)
-        else:
-            t_raw, tri_raw = ktraverse.mesh_closest_hits(
-                scene, o, d, live=active, kernels=cfg.kernels,
-                tables=tables.tree)
+        t_raw, tri_raw = ktraverse.mesh_closest_hits(
+            scene, o, d, live=active, kernels=cfg.kernels,
+            tables=tables.tree)
     k1 = kintersect.first_hits(
         scene, o, d, state["time"], active,
         eps=cfg.epsilon, tex_out=(2 if rec_tex else int(use_pair)),

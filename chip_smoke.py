@@ -8,34 +8,37 @@ Cornell box at 850x480, 16 spp, 6 bounces through
 `tracer_torch.render.renderer.render`, checks that the render went through
 the forward kernels, and repeats the checks on a Cornell whose textures and
 normal maps are seeded arrays (the pair-atlas branch). Then the backward:
-the record variants of the forward kernels, the bounce-adjoint kernel and
-the texel fold against their plain versions on one recorded 850x480
-sample, and the flagship protocol's fwd+bwd (`render_pixels` +
-`loss.backward()`, mat_diffuse, sph_center and tex_data trainable) on both
-boxes, with its launch counts and its 1-spp gradients held against the
-plain path. Then lit mesh scenes: the BVH walk (B5) and the soft shadows
-(B6) against their plain versions on 408,000 lanes (flamingo_standin:
-`setup_flamingo` with a 52,900-triangle stand-in mesh; the flamingo_pond
-layout with stand-ins of 11,236 and 52,900 triangles; random_spheres,
-whose shadows test tables only), with each ray's walk steps
+the record variants of the forward kernels, the bounce adjoint (B3, with
+the row-cotangent tables it adds to) and the texel fold (B4, on the real
+record and on all-zero, skewed, non-finite, empty and odd-sized streams)
+against their plain versions on one recorded 850x480 sample, each also run
+twice for bit equality, and the flagship protocol's fwd+bwd
+(`render_pixels` + `loss.backward()`, mat_diffuse, sph_center and tex_data
+trainable) on both boxes, with its launch counts, its 1-spp gradients held
+against the plain path, and a profile that counts the GEMM launches left in
+the step (none per bounce). Then lit mesh scenes: the BVH walk (B5) and the
+soft shadows (B6) against their plain versions on 408,000 lanes
+(flamingo_standin: `setup_flamingo` with a 52,900-triangle stand-in mesh;
+the flamingo_pond layout with stand-ins of 11,236 and 52,900 triangles;
+random_spheres, whose shadows test tables only), with each ray's walk steps
 (p50/p90/p99/max, counted by the plain versions), the persistent blocks,
-and probes of the JAX package's sorted dispatch in front of them; B1 and
-B2 with mesh and light inputs, and the renders of flamingo_standin
-(16 spp) and random_spheres (4 spp) through `render`, their launch counts
-and their 1-spp radiance held against the plain path. Every phase
-prints one line; any failure is an uncaught exception and a non-zero
-exit. The last two lines are a JSON record of the kernels and
-`{"ok": true, ...}`.
+and probes of the JAX package's sorted dispatch in front of them; B1 and B2
+with mesh and light inputs, and the renders of flamingo_standin (16 spp)
+and random_spheres (4 spp) through `render`, their launch counts and their
+1-spp radiance held against the plain path. Every phase prints one line;
+any failure is an uncaught exception and a non-zero exit. The last two
+lines are a JSON record of the kernels and `{"ok": true, ...}`.
 
 Tolerances: discrete outputs (winning primitive, material, texel indices,
 active flags) must match exactly; forward float outputs within atol=2e-5,
 the tolerance the JAX package holds its own kernels to
 (tests/test_kernels.py). The bounce adjoint: 0 mismatches on pass-through
 lanes and 2e-5 * max(1, |plain|) elsewhere (the same expressions, built
-with --fmad=false; cosf/sinf may differ by an ulp). The fold and the
-gradients: f32 summation order (the kernel sums a texel's run in sorted
-order, the plain scatter in stream order; the one-hot matmuls sum in
-cuBLAS's order): rtol 1e-5 / atol 1e-5 * max|plain| for the fold, max
+with --fmad=false; cosf/sinf may differ by an ulp). Its tables, the fold
+and the gradients: f32 summation order (the kernels sum in a fixed tree
+and sorted order, the plain versions in cuBLAS's and stream order): the
+tables within 1e-5 of their largest entry, the fold rtol 1e-5 / atol
+1e-5 * max|plain| (NaN and inf where the plain fold has them), max
 relative error 1e-4 for the 1-spp gradients. B5's (t, tri) and B6's
 factors must match exactly.
 """
@@ -92,6 +95,9 @@ OPS_VISIT, OPS_TRI, OPS_TABLE, OPS_SAMPLE = 27, 45, 30, 60
 DEV = torch.device("cuda", 0)
 DISCRETE = ("j", "tid", "mid", "row", "sub", "idx_t", "idx_n", "active")
 TRAINABLE = ("mat_diffuse", "sph_center", "tex_data")
+# what one B4 call runs on the card: its kernels and the copy out = data
+FOLD_OPS = ("fold_", "Memcpy DtoD")
+LARGE_M = 400       # unused material rows that push B3's tables to global
 
 
 def say(phase, **kv):
@@ -114,10 +120,24 @@ def timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def enqueue_ms(fn, reps):
+    """Host ms per call of `fn` to enqueue its work (no synchronise inside
+    the timed calls): what a host-bound caller pays per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return f"{(t1 - t0) * 1e3 / reps:.4f}"
+
+
 def device_ms(fn, reps, kernel):
     """The kernel's own device time per call of `fn`, from torch.profiler:
-    every CUDA kernel whose name holds `kernel` (the per-call times above
-    also hold the wrapper's host work and its glue kernels)."""
+    every CUDA kernel (or copy) whose name holds `kernel` or one of a tuple
+    of names (the per-call times above also hold the wrapper's host work
+    and its glue kernels)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -125,7 +145,9 @@ def device_ms(fn, reps, kernel):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    evs = [e for e in prof.key_averages()
+           if any(k in e.key for k in names)]
     if sum(e.count for e in evs) == 0:
         return "not-measured"
     return f"{sum(e.self_device_time_total for e in evs) / 1e3 / reps:.4f}"
@@ -402,80 +424,123 @@ def record_sample(scene, cfg):
     return tm, keys, rec, states
 
 
+def bit_equal(x, y):
+    """Same bits (NaN included), or both None."""
+    if x is None or y is None:
+        return x is None and y is None
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
 def bwd_phase(label, scene, stats):
     """B3 against its plain version on the recorded inputs of one sample:
-    the last bounce and bounce 0, both compat modes."""
+    the last bounce and bounce 0, both compat modes, seeded next-state
+    cotangents and a seeded nonzero running table. a and b are held per
+    lane (0 pass-through mismatches, BWD_RTOL), the tables within
+    FOLD_RTOL of their largest entry (summation order), and two runs must
+    give the same bits. On the flat box one more case pads the material
+    table with LARGE_M unused rows, so that the warp tables no longer fit
+    in shared memory and live in global scratch."""
     tables = kbwd.bwd_tables(scene)
     S, Q = scene.sph_center.shape[0], scene.quad_v0.shape[0]
     has_pair = scene.pair_pack.shape[0] > 1
     gen = torch.Generator(device=DEV).manual_seed(5)
     N = W * H
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    large = (tables[0], tables[1], torch.cat(
+        [tables[2], tables[2][-1:].expand(LARGE_M, -1)]))
     for compat in ("reference", "physical"):
         cfg = RenderConfig(compat=compat, max_bounces=BOUNCES)
         tm, keys, rec, states = record_sample(scene, cfg)
-        for b in (BOUNCES - 1, 0):
+        cases = [(BOUNCES - 1, tables), (0, tables)]
+        if compat == "reference" and not has_pair:
+            cases.append((0, large))
+        for b, tabs in cases:
+            M = tabs[2].shape[0]
+            C = kbwd.table_size(S, Q, M)
             last = b == BOUNCES - 1
-            gcar = torch.randn((12, N), generator=gen, device=DEV)
-            if last:
-                gcar[:9] = 0.0
+            gnext = None if last else torch.randn((10, N), generator=gen,
+                                                  device=DEV)
+            gpix = torch.randn((3, N), generator=gen, device=DEV)
+            acc = torch.randn((C,), generator=gen, device=DEV)
             st10, j = states[b], rec[b][0][0]
-            args = (st10, j, rec[b][1], tables, rng.salted(keys, b), tm,
-                    gcar, float(BOUNCES - b), float(scene.dark_sky))
+            args = (st10, j, rec[b][1], tabs, rng.salted(keys, b), tm,
+                    gnext, gpix, acc, float(BOUNCES - b),
+                    float(scene.dark_sky))
             kw = dict(S=S, Q=Q, ref=compat == "reference",
                       eps=cfg.epsilon, has_pair=has_pair, last=last)
 
-            def run(mode):
-                return kbwd.bounce_bwd_tiles(*args, kernels=mode, **kw)
+            def run(mode, inputs=args):
+                return kbwd.bounce_bwd_tiles(*inputs, kernels=mode, **kw)
 
             got, want = run("auto"), run("off")
+            if not all(bit_equal(g, h) for g, h in zip(got, run("auto"))):
+                raise AssertionError(f"bounce_bwd {label} {compat} b{b}: "
+                                     "two runs differ")
             dead = st10[9] < 0.5
-            mism, err = 0, 0.0
-            for g, w in zip(got, want):
+            mism, err, abs_err = 0, 0.0, 0.0
+            for g, w in zip(got[:2], want[:2]):
+                if w is None:
+                    continue
                 if not bool(torch.isfinite(g).all()):
                     raise AssertionError(f"bounce_bwd {label}: non-finite")
                 mism += int((g[:, dead] != w[:, dead]).sum())
                 rel = (g - w).abs() / torch.clamp_min(w.abs(), 1.0)
                 err = max(err, float(rel.max()))
+                abs_err = max(abs_err, float((g - w).abs().max()))
             if mism != 0 or err > BWD_RTOL:
                 raise AssertionError(
                     f"bounce_bwd {label} {compat} b{b}: {mism} pass-through "
                     f"mismatches, max rel err {err:.3g} > {BWD_RTOL}")
-            abs_err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
+            scale = float(want[2].abs().max())
+            tab_err = float((got[2] - want[2]).abs().max())
+            if not tab_err <= FOLD_RTOL * scale:
+                raise AssertionError(
+                    f"bounce_bwd {label} {compat} b{b}: tables max err "
+                    f"{tab_err:.3g} > {FOLD_RTOL} x {scale:.3g}")
+            abs_err = max(abs_err, tab_err)
             ms = timed(lambda: run("auto"), 20)
             pms = timed(lambda: run("off"), 3)
             n_act = int((~dead).sum())
-            bms = bound_ms(bwd_bytes(n_act, N, last, has_pair, tables))
-            # a probe of what warps that mix active and dead lanes cost:
-            # the same lanes with the active ones first
+            bms = bound_ms(bwd_bytes(n_act, N, last, has_pair, tabs, acc))
+            # a probe: the same lanes with the active ones first
             perm = torch.argsort(dead.to(torch.int32), stable=True)
-            pargs = (st10[:, perm], j[perm], rec[b][1][:, perm], tables,
-                     args[4][perm], tm[perm], gcar[:, perm], *args[7:])
+            pargs = (st10[:, perm], j[perm], rec[b][1][:, perm], tabs,
+                     args[4][perm], tm[perm],
+                     None if last else gnext[:, perm], gpix[:, perm],
+                     *args[8:])
             say("B3", scene=label, compat=compat, bounce=b, last=last,
-                lanes=N, active=n_act,
-                passthrough_mismatches=mism,
+                lanes=N, active=n_act, active_share=f"{n_act / N:.3f}",
+                table_entries=C, warp_tables=(
+                    "shared" if kbwd.scratch_plan(C, sms)[0] else "global"),
+                passthrough_mismatches=mism, deterministic=True,
                 max_rel_err=f"{err:.3g}", max_abs_err=f"{abs_err:.3g}",
+                table_max_abs_err=f"{tab_err:.3g}",
+                table_max_abs=f"{scale:.3g}",
                 ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+                host_ms=enqueue_ms(lambda: run("auto"), 20),
                 device_ms=device_ms(lambda: run("auto"), 20, "bounce_bwd"),
+                reduce_device_ms=device_ms(lambda: run("auto"), 20,
+                                           "bounce_bwd_reduce"),
                 active_first_device_ms=device_ms(
-                    lambda: kbwd.bounce_bwd_tiles(*pargs, **kw), 20,
-                    "bounce_bwd"),
+                    lambda: run("auto", pargs), 20, "bounce_bwd"),
                 bound_ms=f"{bms:.4f}")
             stats["bounce_bwd"].append(Rec(abs_err, ms, pms, bms))
 
 
-def bwd_bytes(n_active, n, last, has_pair, tables):
+def bwd_bytes(n_active, n, last, has_pair, tables, acc):
     """What B3 must read and write per call. An active lane reads st10,
-    j, time, the texel record (img and ptex; with an atlas also rnm and
-    pnm) and gpix, and before the last bounce also the key and the
-    next-state cotangents; a lane that is not active reads its active
-    flag and, before the last bounce, the next-state cotangents it passes
-    through; every lane writes a, b and c (62 f32); the small tables are
-    read once."""
-    live = 10 + 1 + 1 + (8 if has_pair else 4) + 3 + (0 if last else 1 + 9)
-    dead = 1 + (0 if last else 9)
-    return (4 * (n_active * live + (n - n_active) * dead + n * 62)
-            + nbytes(tables))
+    j, time and gpix, with the pair atlas the texel record (8 f32), and
+    before the last bounce the key and the next-state cotangents (the
+    previous call's a: 10 f32); a lane that is not active reads its
+    active flag and, before the last bounce, the next-state cotangents it
+    passes through; every lane writes a (10 f32) and, with the pair
+    atlas, b (6 f32); the small tables are read once and the running
+    tables read and written once."""
+    live = 10 + 1 + 1 + 3 + (8 if has_pair else 0) + (0 if last else 1 + 10)
+    dead = 1 + (0 if last else 10)
+    out = 10 + (6 if has_pair else 0)
+    return (4 * (n_active * live + (n - n_active) * dead + n * out)
+            + nbytes(tables) + 2 * nbytes(acc))
 
 
 def tf32_phase():
@@ -501,10 +566,34 @@ def tf32_phase():
         same_product_in_tf32_err=tf32_err)
 
 
+def fold_check(name, got, want):
+    """B4 against its plain version: NaN and inf where the plain fold has
+    them, the rest within FOLD_RTOL (summation order); the max |err|."""
+    if not (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isinf(), want.isinf())):
+        raise AssertionError(f"sorted_fold {name}: non-finite texels differ")
+    fin = torch.isfinite(want)
+    g, w = got[fin], want[fin]
+    if not bool(torch.equal(got[want.isinf()], want[want.isinf()])):
+        raise AssertionError(f"sorted_fold {name}: infinite texels differ")
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    bad = (g - w).abs() > FOLD_RTOL * w.abs() + FOLD_RTOL * scale
+    if bool(bad.any()):
+        raise AssertionError(f"sorted_fold {name}: {int(bad.sum())} texels "
+                             f"off (max abs err {err:.3g}, max|plain| "
+                             f"{scale:.3g})")
+    return err, scale
+
+
 def fold_phase(scene, stats):
     """B4 against its plain version on the real update stream of one
-    textured sample (bounces 0..4 of 850x480: 2.04M updates), its
-    determinism, the library yardstick, and a skewed stream."""
+    textured sample (bounces 0..4 of 850x480: 2.04M updates, passed as the
+    backward passes them, one row per bounce), its determinism, the
+    library yardstick, and the streams that bound its contract: all
+    zeros, skewed, one NaN and one inf, empty, a texel and update count
+    that is a multiple of no tile or chunk, atlases small enough for one
+    and two radix passes, and more rows than the kernel reads in place."""
     cfg = RenderConfig(max_bounces=BOUNCES)
     tm, keys, rec, states = record_sample(scene, cfg)
     N = W * H
@@ -512,45 +601,86 @@ def fold_phase(scene, stats):
     with torch.no_grad():
         _, _, _, _, gtex = replay_bwd.replay_backward(
             scene, cfg, tm, keys, rec, states, g)
-    idx = torch.cat([r[0][2] for r in rec[:-1]])
-    gx, gy, gz = (torch.cat([t[a] for t in gtex]) for a in range(3))
+    idxs = [r[0][2] for r in rec[:-1]]
+    gs = [tuple(t[0:3]) for t in gtex]
     data = torch.zeros_like(scene.tex_data)
-    P, M = data.shape[0], idx.numel()
+    P = data.shape[0]
 
-    def run(mode, ix=idx):
-        return kfold.sorted_fold(data, ix, gx, gy, gz, kernels=mode)
+    def run(mode, ix=idxs, gg=gs, d=data):
+        return kfold.fold_updates(d, ix, gg, kernels=mode)
 
-    got, want = run("auto"), run("off")
-    scale = float(want.abs().max())
-    bad = (got - want).abs() > FOLD_RTOL * want.abs() + FOLD_RTOL * scale
-    err = float((got - want).abs().max())
-    if bool(bad.any()) or scale == 0.0:
-        raise AssertionError(f"sorted_fold: {int(bad.sum())} texels off "
-                             f"(max abs err {err:.3g}, max|plain| {scale})")
-    again = run("auto")
-    if not torch.equal(got, again):
-        raise AssertionError("sorted_fold: two runs differ (not "
-                             "deterministic)")
+    def cat(ix=idxs, gg=gs):
+        return (torch.cat(ix), *(torch.cat([t[a] for t in gg])
+                                 for a in range(3)))
+
+    idx, gx, gy, gz = cat()
+    M = idx.numel()
+    survivors = int(((gx != 0) | (gy != 0) | (gz != 0)).sum())
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    hot = idx.clone()
+    hot[: M // 2] = torch.randint(0, 5, (M // 2,), device=DEV, generator=gen,
+                                  dtype=hot.dtype)
+    hot_rows = list(hot.split(N))
+    bad_g = [tuple(c.clone() for c in t) for t in gs]
+    bad_g[1][0][N // 3] = float("nan")
+    bad_g[3][2][N // 5] = float("inf")
+    zero_g = [tuple(torch.zeros_like(c) for c in t) for t in gs]
+    Po, Mo = 1_000_003, 1_234_567           # prime, and no tile's multiple
+    odd_ix = [torch.randint(0, Po, (Mo,), device=DEV, generator=gen,
+                            dtype=torch.int32)]
+    odd_g = [tuple(torch.randn((Mo,), device=DEV, generator=gen)
+                   for _ in range(3))]
+    odd_d = torch.randn((Po, 3), device=DEV, generator=gen)
+    # smaller atlases sort in fewer radix passes (ids below 2^8, 2^16),
+    # and more segments than the kernel reads in place are joined first
+    small = {}
+    for name, Ps, ns, rows in (("one_pass", 200, 50_000, 1),
+                               ("two_passes", 40_000, 300_000, 2),
+                               ("many_segments", 5_000, 1_000, 20)):
+        small[name] = dict(
+            ix=[torch.randint(0, Ps, (ns,), device=DEV, generator=gen,
+                              dtype=torch.int32) for _ in range(rows)],
+            gg=[tuple(torch.randn((ns,), device=DEV, generator=gen)
+                      for _ in range(3)) for _ in range(rows)],
+            d=torch.randn((Ps, 3), device=DEV, generator=gen))
+    empty_ix = [torch.zeros((0,), dtype=torch.int32, device=DEV)]
+    empty_g = [tuple(torch.zeros((0,), device=DEV) for _ in range(3))]
+    cases = {"real": {}, "all_zero": dict(gg=zero_g),
+             "skewed": dict(ix=hot_rows), "nan_inf": dict(gg=bad_g),
+             "empty": dict(ix=empty_ix, gg=empty_g),
+             "odd_sizes": dict(ix=odd_ix, gg=odd_g, d=odd_d), **small}
+    out = {}
+    for name, kw in cases.items():
+        got, want = run("auto", **kw), run("off", **kw)
+        err, scale = fold_check(name, got, want)
+        if not bit_equal(got, run("auto", **kw)):
+            raise AssertionError(f"sorted_fold {name}: two runs differ")
+        if name == "real" and scale == 0.0:
+            raise AssertionError("sorted_fold: the real stream is all zero")
+        if name in ("all_zero", "empty") and not torch.equal(got, kw.get(
+                "d", data)):
+            raise AssertionError(f"sorted_fold {name}: out != data")
+        out[name] = err
     ms = timed(lambda: run("auto"), 20)
     pms = timed(lambda: run("off"), 3)
     g3 = torch.stack([gx, gy, gz], dim=1)
     lms = timed(lambda: torch.zeros_like(data).index_add_(0, idx, g3), 20)
-    bms = bound_ms(nbytes(idx, gx, gy, gz, data, got))
-    hot = idx.clone()
-    hot[: M // 2] = torch.randint(0, 5, (M // 2,), device=DEV,
-                                  generator=torch.Generator(
-                                      device=DEV).manual_seed(1),
-                                  dtype=hot.dtype)
-    hms = timed(lambda: run("auto", hot), 5)
-    say("B4", scene="cornell_textured", updates=M, texels=P,
-        max_abs_err=f"{err:.3g}", max_abs_plain=f"{scale:.3g}",
+    bms = bound_ms(nbytes(idx, gx, gy, gz, data, data))
+    say("B4", scene="cornell_textured", updates=M, survivors=survivors,
+        texels=P, max_abs_err={k: f"{v:.3g}" for k, v in out.items()},
         deterministic=True, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
-        library_ms=f"{lms:.4f}",
-        device_ms=device_ms(lambda: run("auto"), 20, "sorted_fold"),
-        bound_ms=f"{bms:.4f}", skewed_ms=f"{hms:.4f}",
-        skewed_device_ms=device_ms(lambda: run("auto", hot), 5,
-                                   "sorted_fold"))
-    stats["sorted_fold"].append(Rec(err, ms, pms, bms, library_ms=lms))
+        library_ms=f"{lms:.4f}", host_ms=enqueue_ms(lambda: run("auto"), 20),
+        device_ms=device_ms(lambda: run("auto"), 20, FOLD_OPS),
+        bound_ms=f"{bms:.4f}",
+        skewed_ms=f"{timed(lambda: run('auto', ix=hot_rows), 5):.4f}",
+        skewed_device_ms=device_ms(lambda: run("auto", ix=hot_rows), 5,
+                                   FOLD_OPS),
+        all_zero_ms=f"{timed(lambda: run('auto', gg=zero_g), 5):.4f}",
+        dense_ms=f"{timed(lambda: run('auto', **cases['odd_sizes']), 5):.4f}",
+        dense_device_ms=device_ms(lambda: run("auto", **cases["odd_sizes"]),
+                                  5, FOLD_OPS))
+    stats["sorted_fold"].append(Rec(max(out.values()), ms, pms, bms,
+                                    library_ms=lms))
 
 
 def protocol_grads(scene, cam, cfg, spp, trainable):
@@ -666,11 +796,23 @@ def profile_phase(label, sb, trainable=TRAINABLE):
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+
+    def launches_of(part):
+        return sum(e.count for e in evs if part in e.key.lower())
+
+    # the sweep adds the row cotangents inside B3: the only matmuls left
+    # are the two small ones per backward that map the tables' motion blur
+    # onto mat_mb, none per bounce
+    gemms = launches_of("gemm")
+    if trainable and gemms > 2 * SPP:
+        raise AssertionError(f"profile {label}: {gemms} GEMM launches in "
+                             f"one step, more than 2 per sample")
     say("profile", scene=label, spp=SPP,
         step="+".join(trainable) if trainable else "forward",
         wall_ms=f"{wall_ms:.1f}", device_busy_ms=f"{busy_ms:.1f}",
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}",
         device_launches=sum(e.count for e in evs),
+        gemm_launches=gemms, cat_launches=launches_of("catarray"),
         top=[(e.key[:48], f"{e.self_device_time_total / 1e3:.2f}ms",
               e.count) for e in top])
 

@@ -85,6 +85,46 @@ def test_fold_updates_over_bounces():
                                            axis=1)))
 
 
+@pytest.mark.parametrize("case", ["three_quarters_zero", "non_finite"])
+def test_fold_contract(case):
+    """What the kernel is held to on the card, on the plain version: a
+    stream whose updates are 3/4 exact zeros on texel 0 (a Cornell record:
+    lanes with no texel; the kernel drops them) folds as the flat float64
+    scatter does, and a NaN or +-inf cotangent reaches its texel as there
+    (the kernel keeps them). Several bounces' rows, as the backward
+    passes them."""
+    rs = np.random.RandomState(4)
+    P, n, nb = 777, 4000, 3
+    idxs, gs = [], []
+    for _ in range(nb):
+        idx = rs.randint(0, P, n).astype(np.int32)
+        g = rs.normal(size=(3, n)).astype(np.float32)
+        zero = rs.rand(n) < 0.75
+        idx[zero] = 0
+        g[:, zero] = 0.0
+        g[:, zero & (rs.rand(n) < 0.5)] *= -1.0   # -0 as well as +0
+        idxs.append(idx)
+        gs.append(g)
+    if case == "non_finite":
+        gs[0][1, 17], gs[1][0, 5], gs[2][0, 9] = np.nan, np.inf, -np.inf
+        idxs[0][17], idxs[1][5], idxs[2][9] = 3, 4, 4   # inf - inf = NaN
+        idxs[1][6], gs[1][:, 6] = 5, np.inf
+    data = rs.normal(size=(P, 3)).astype(np.float32)
+    got = tfold.fold_updates(
+        torch.from_numpy(data), [torch.from_numpy(i) for i in idxs],
+        [tuple(torch.from_numpy(g[a]) for a in range(3)) for g in gs])
+    want = flat(data, np.concatenate(idxs), np.concatenate(gs, axis=1))
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    if case == "non_finite":
+        assert np.isnan(got[3, 1]) and np.isnan(got[4, 0])
+        assert np.isposinf(got[5]).all()
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                               atol=1e-5 * np.abs(want[fin]).max())
+
+
 def test_kernels_on_refuses_cpu_tensors():
     z = torch.zeros(4)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -7,12 +7,17 @@
   for {reference, physical} x {last, not last} x {pair atlas, no atlas}.
   The inputs are one bounce of the port's record forward on ~2K rays of the
   Cornell-like scene of tests/test_replay_bwd.py, made from a numpy seed,
-  with seeded cotangents; the JAX side gets the same per-lane rows. Held
-  to 2e-5 * max(1, |x|) against the eager jnp (the same expressions in the
-  same order; cos/sin may differ by an ulp) and 1e-3 * max(1, |x|) against
-  the jitted kernel: XLA:CPU contracts its multiply-adds, and at an
-  ill-conditioned refraction lane that moves a cotangent by 2.4e-4 of its
-  size (measured; the eager jnp agrees with the port there).
+  with seeded cotangents; the JAX side gets the same per-lane rows. The
+  lane outputs (a, b) are held to 2e-5 * max(1, |x|) against the eager
+  jnp (the same expressions in the same order; cos/sin may differ by an
+  ulp) and 1e-3 * max(1, |x|) against the jitted kernel: XLA:CPU
+  contracts its multiply-adds, and at an ill-conditioned refraction lane
+  that moves a cotangent by 2.4e-4 of its size (measured; the eager jnp
+  agrees with the port there). The running tables, from a seeded nonzero
+  accumulator, are held against JAX's `_onehot_accum` of each side's row
+  cotangents to 1e-5 of their largest entry (eager; f32 summation order)
+  and 1e-3 of it (the jitted kernel, whose contracted lane moves a sphere
+  entry by ~1.6e-4 of the largest).
 - The whole VJP of `integrator.trace` through `torch.autograd` against
   `jax.vjp` of JAX's `trace`, leaf by leaf (the 20 scene fields, o, d and
   time), on that scene (64 rays, 4 bounces), with the tolerance of
@@ -150,29 +155,34 @@ def test_bounce_bwd_matches_jax(phase1, compat, last, has_pair):
     if not has_pair:   # what the record holds for a scene without atlas
         recf = torch.zeros_like(recf)
     rs = np.random.RandomState(7)
-    gcar = torch.from_numpy(np.concatenate([
-        rs.normal(size=(9, N_LANES)),
-        0.1 * rs.normal(size=(3, N_LANES))]).astype(np.float32))
-    if last:
-        gcar[:9] = 0.0
+    gnext = torch.from_numpy(rs.normal(size=(10, N_LANES)).astype(np.float32))
+    gpix = torch.from_numpy(
+        (0.1 * rs.normal(size=(3, N_LANES))).astype(np.float32))
     bk = trng.salted(keys, b)
     S, Q = ts.sph_center.shape[0], ts.quad_v0.shape[0]
     tables = tsb.bwd_tables(ts)
+    M = tables[2].shape[0]
+    acc0 = torch.from_numpy(rs.normal(
+        size=tsb.table_size(S, Q, M)).astype(np.float32))
     n_rem, dark = float(B - b), float(ts.dark_sky)
     kw = dict(S=S, Q=Q, ref=ref, eps=cfg.epsilon, has_pair=has_pair,
               last=last)
-    got = tsb.bounce_bwd_tiles(st10, reci[0], recf, tables, bk, tm, gcar,
-                               n_rem, dark, **kw)
+    got_a, got_b, got_acc = tsb.bounce_bwd_tiles(
+        st10, reci[0], recf if has_pair else None, tables, bk, tm,
+        None if last else gnext, gpix, acc0, n_rem, dark, **kw)
     assert bool((st10[9] > 0.5).any()) and bool((st10[9] < 0.5).any())
 
-    # the JAX side: the same per-lane rows, as its sweep fetches them
+    # the JAX side: the same per-lane rows, as its sweep fetches them, and
+    # the next-state cotangents and gpix stacked as its gcar
     js_, jq_, mid = tsb.row_ids(reci[0], tables[0], tables[1])
     srow = tables[0][js_].t().numpy()
     qrow = tables[1][jq_].t().numpy()
     mr21 = tables[2][mid].t().numpy()
     j = jnp.asarray
     bk32 = j(trng.as_int32_bits(bk).numpy())
-    st, rf, gc = st10.numpy(), recf.numpy(), gcar.numpy()
+    gn = np.zeros((10, N_LANES), np.float32) if last else gnext.numpy()
+    gc = np.concatenate([gn[:9], gpix.numpy()])
+    st, rf = st10.numpy(), recf.numpy()
 
     def p3(x, r):
         return tuple(j(x[r + a]) for a in range(3))
@@ -193,16 +203,48 @@ def test_bounce_bwd_matches_jax(phase1, compat, last, has_pair):
         j(st), j(reci[0].numpy()), j(rf), j(mr21), j(srow), j(qrow), bk32,
         j(tm.numpy()), j(gc), jnp.float32(n_rem), js.dark_sky,
         interpret=True, **kw)
-    for name, want_set, tol in (("eager jnp", eager, 2e-5),
-                                ("pallas interpret", tiles, 1e-3)):
-        for blk, g, w in zip("abc", got, want_set):
-            g, w = g.numpy(), np.asarray(w)
+    o1, o2 = 18 * M, 18 * M + 8 * S
+    a0 = acc0.numpy()
+    idx = [j(x.numpy().astype(np.int32)) for x in (mid, js_, jq_)]
+    for name, (wa, wb, wc), tol, ttol in (
+            ("eager jnp", eager, 2e-5, 1e-5),
+            ("pallas interpret", tiles, 1e-3, 1e-3)):
+        wa, wb, wc = np.asarray(wa), np.asarray(wb), np.asarray(wc)
+        # a: go, gd, gtp, and gtm added to the running one
+        want_a = wa[:10].copy()
+        if not last:
+            want_a[9] = gn[9] + want_a[9]
+        blocks = [("a", got_a, want_a)]
+        if has_pair:
+            blocks.append(("b", got_b, wb))
+        else:   # without the atlas the texel cotangents are all zero
+            assert got_b is None and not wb.any()
+        for blk, g, w in blocks:
+            g = g.numpy()
             assert np.isfinite(g).all(), blk
             bad = np.abs(g - w) > tol * np.maximum(1.0, np.abs(w))
             assert not bad.any(), (
                 f"{name} block {blk}: {bad.sum()} entries off, rows "
                 f"{sorted(set(np.nonzero(bad)[0].tolist()))}, max "
                 f"{np.abs(g - w).max():.3g}")
+        # the tables: JAX's one-hot accumulation of c onto the same
+        # running tables, and gdark's sum
+        want_acc = np.concatenate([
+            np.asarray(jrb._onehot_accum(j(a0[:o1].reshape(18, M)), idx[0],
+                                         j(wc[0:18]))).reshape(-1),
+            np.asarray(jrb._onehot_accum(j(a0[o1:o2].reshape(8, S)),
+                                         idx[1], j(wc[18:26]))).reshape(-1),
+            np.asarray(jrb._onehot_accum(j(a0[o2:-1].reshape(19, Q)),
+                                         idx[2], j(wc[26:45]))).reshape(-1),
+            a0[-1:] + np.asarray(jnp.sum(j(wa[10])))[None]])
+        g = got_acc.numpy()
+        assert np.isfinite(g).all()
+        lim = ttol * np.abs(want_acc).max()
+        err = np.abs(g - want_acc)
+        assert err.max() <= lim, (
+            f"{name} tables: max err {err.max():.3g} > {lim:.3g} at "
+            f"{np.nonzero(err > lim)[0].tolist()}")
+        assert not np.array_equal(g, a0)   # the bounce adds to them
 
 
 @pytest.mark.parametrize("compat,sky", [("reference", False),

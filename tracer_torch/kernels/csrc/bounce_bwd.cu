@@ -1,41 +1,66 @@
 // Bounce-adjoint kernel for Hopper: one bounce of the hand-written
-// record-replay backward, one thread per lane. From the recorded winner,
-// texels and the bounce's input state it recomputes the replay bounce and
-// chains the cotangents to o, d, throughput, time, texels, raw normals,
-// dark_sky and the lane's material, sphere and quad rows.
+// record-replay backward. From the recorded winner, texels and the
+// bounce's input state it recomputes the replay bounce, chains the
+// cotangents to o, d, throughput, time, texels and raw normals, and adds
+// the cotangents of the lanes' material, sphere and quad rows and of
+// dark_sky onto the running tables of the sweep.
 //
 // Replaces the TPU kernel tracer/kernels/shade_bwd.py::bounce_bwd_tiles
 // (Pallas; body _kernel at shade_bwd.py:37-94, the math of
-// tracer/render/replay_bwd.py::bounce_bwd). The TPU path fed it per-lane
-// material/sphere/quad rows fetched by one-hot matmuls in XLA
-// (replay_bwd.py:557-566); here the rows are read by index from the small
-// tables. The plain PyTorch version is
-// tracer_torch/kernels/shade_bwd.py::bounce_bwd_plain
-// (tracer_torch/render/replay_bwd.py::bounce_bwd): the same expressions in
-// the same order, and this file is built with --fmad=false, so the card
-// reproduces it up to the ulp of cosf/sinf under compat=physical.
+// tracer/render/replay_bwd.py::bounce_bwd) together with the sweep's
+// one-hot matmuls around it (replay_bwd.py:557-566 fetch the rows,
+// :639-644 fold the row cotangents into the tables). Here the rows are
+// read by index from the small tables, and the row cotangents never leave
+// the chip. The plain PyTorch version is
+// tracer_torch/kernels/shade_bwd.py::bounce_bwd_plain: the lane math of
+// tracer_torch/render/replay_bwd.py::bounce_bwd in the same order (this
+// file is built with --fmad=false, so the card reproduces it up to the
+// ulp of cosf/sinf under compat=physical), then the one-hot accumulation.
+// The tables differ from it only in the order of the f32 sums.
 //
-// Bound: memory. An active lane reads at most 132 B (st10, j, recf, key,
-// time, gcar) and every lane writes 248 B (a, b, c): at most ~155 MB per
-// 408,000-lane launch, ~46 us at 3.35 TB/s. The arithmetic is a few
-// hundred flops per lane, far below the compute bound. Every intermediate
-// stays in registers; each input is read once, only where the result
-// needs it, and each output written once. A lane that is not active reads
-// its active flag and the next-state cotangents and takes an early exit
-// that writes the pass-through (go = go2, gd = gd2, gtp = gtp2, zeros
-// elsewhere), as the TPU kernel's dead tile. The last bounce reads no
-// next-state cotangent and no key, and a scene without an atlas reads no
-// normal-map record. A warp that mixes active and inactive lanes issues
-// both branches' stores (PERF.md has what that costs, and what one common
-// store path cost the fully active bounces instead).
+// Bound: memory. An active lane reads at most 128 B (st10, j, time, the
+// texel record, gpix, the key and the next-state cotangents), a lane that
+// is not active its flag and the next-state cotangents, and every lane
+// writes a (40 B) and, with the pair atlas, b (24 B): at most ~65-75 MB
+// per 408,000-lane launch. Before, every lane also wrote its 45 row
+// cotangents (73 MB), which the sweep then folded with three one-hot
+// GEMMs of K = 8-19 columns, several times B3's own device time. The
+// design, two kernels per call:
+// - bounce_bwd_kernel, one wave of persistent blocks of 256 threads, each
+//   block walking the tiles of 1024 lanes blockIdx, blockIdx + grid, ...
+//   In each tile the block ballots its lanes' active flags and lists the
+//   active lanes first, in lane order, in shared memory; its threads then
+//   take the list in four rounds of 256, so the adjoint chain runs on
+//   full warps of active lanes and the rest write the dead lanes'
+//   pass-through (a textured last bounce, 15% active, mixed them in every
+//   warp). Each warp then groups its lanes by row id (the first remaining
+//   lane's id, a ballot of equal ids; pixels next to each other hit the
+//   same primitive, so a warp nearly always holds one material, one
+//   sphere and one quad row) and sums each group by a fixed shuffle tree
+//   that halves the values at each exchange, the values of non-members
+//   set to zero. Lanes whose cotangents are all +-0 for a table join no
+//   group (adding them changes no bit). One lane per value adds the sum
+//   into the warp's own copy of the tables, in shared memory when the warp
+//   copies fit (WARPS x C floats) and in global scratch otherwise. At the
+//   end the block sums its warps' copies in warp order into its partial
+//   row.
+// - bounce_bwd_reduce: each running table entry plus the blocks' partial
+//   rows, summed in a fixed order (eight contiguous ranges of blocks, each
+//   in block order, then the ranges in order).
+// No float atomics: the grid, the tiles of each block and every sum's
+// order are fixed, so two runs give the same bits.
 //
 // Tables: sph [S, 8] (c, r, mb, mid), quad [Q, 19] (v0, er, eu, mb, tan,
 // bitan, mid), mat [M, 21] (the 18 matf columns, textype, mtype, mat_nm).
 // Inputs [K, n]: st10 = o(3), d(3), tp(3), active; recf = img(3), rnm(3),
-// ptex, pnm; gcar = go2(3), gd2(3), gtp2(3), gpix(3).
-// Outputs: a [11, n] = go(3), gd(3), gtp(3), gtm, gdark;
-//          b [6, n] = gimg(3), grnm(3);
-//          c [45, n] = gmrf(18), gsrow(8), gqrow(19).
+// ptex, pnm (read only with the pair atlas: without one the record is all
+// zero); gnext = the previous call's a (go2, gd2, gtp2, the running gtm;
+// not read on the last bounce, whose next state is dead); gpix (3).
+// Running tables acc [C], C = 18M + 8S + 19Q + 1: gmatf [18, M], gsph
+// [8, S], gquad [19, Q], gdark, each row-major; the call writes acc_out.
+// Outputs: a [10, n] = go(3), gd(3), gtp(3), gtm (the running sum:
+// gnext's gtm plus this bounce's); b [6, n] = gimg(3), grnm(3), written
+// only with the pair atlas.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -48,28 +73,42 @@
 struct BwdIO {
   const float* st10;
   const int* j;
-  const float* recf;
-  const int* key;  // uint32 key bits, salted with the bounce
+  const float* recf;   // null without the pair atlas
+  const int* key;      // uint32 key bits, salted with the bounce
   const float* tm;
-  const float* gcar;
+  const float* gnext;  // null on the last bounce
+  const float* gpix;
   const float *sph, *quad, *mat;
-  float *a, *b, *c;
+  const float* acc;
+  float *a, *b;        // b null without the pair atlas
+  float* part;         // [max_blocks, C] per-block partial tables
+  float* wtab;         // [max_blocks, WARPS, C] warp tables (global mode)
+  float* acc_out;
 };
 
 // Mirror of _Params in tracer_torch/kernels/shade_bwd.py (same order).
 struct BwdParams {
-  int n, S, Q, M, ref, has_pair, last;
+  int n, S, Q, M, ref, has_pair, last, smem_tables, max_blocks;
   float eps, n_rem, dark;
 };
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int GLASS = 1;
 constexpr int MIRROR = 2;
 constexpr int TEX_NONE = 0;
 constexpr int TEX_CHECKERBOARD = 1;
 constexpr int TEX_IMAGE = 2;
+// the row cotangents that can be nonzero: matf columns 2-15 and 17
+// (texscale and transparency get none), sphere columns 0-6 and quad
+// columns 0-17 (the material-id columns get none)
+constexpr int NMAT = 15, NSPH = 7, NQUAD = 18;
+constexpr int ROUNDS = 4;                // rounds of THREADS lanes a tile
+constexpr int SUPER = ROUNDS * THREADS;  // lanes of a tile
+constexpr int RGROUPS = 8;               // warps of the reduce kernel
 
 struct V3 {
   float x, y, z;
@@ -115,59 +154,52 @@ __device__ __forceinline__ V3 norm_bwd(Norm nf, V3 g) {
           nf.inv * (g.z - nf.u.z * k)};
 }
 
-__global__ void __launch_bounds__(THREADS)
-bounce_bwd_kernel(BwdIO io, BwdParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+// What one active lane's adjoint yields.
+struct LaneOut {
+  V3 go, gd, gtp, gimg, grnm;
+  float gtm, gdark;
+  float mat[NMAT], sph[NSPH], quad[NQUAD];
+  int js, jq, mid;
+};
+
+// The adjoint chain of one active lane i (replay_bwd.bounce_bwd with
+// active true).
+__device__ __forceinline__ void lane_adjoint(const BwdIO& io,
+                                             const BwdParams& p, int i,
+                                             V3 go2, V3 gd2, V3 gtp2,
+                                             LaneOut& out) {
   const int n = p.n;
   const bool last = p.last != 0;
   const bool ref = p.ref != 0;
   const float* st = io.st10 + i;
-  const float* gc = io.gcar + i;
-  float* A = io.a + i;
-  float* Bo = io.b + i;
-  float* C = io.c + i;
   const V3 z3 = {0.0f, 0.0f, 0.0f};
-  V3 go2 = z3, gd2 = z3, gtp2 = z3;  // the last bounce's next state is dead
-  if (!last) {
-    go2 = {gc[0], gc[n], gc[2 * n]};
-    gd2 = {gc[3 * n], gc[4 * n], gc[5 * n]};
-    gtp2 = {gc[6 * n], gc[7 * n], gc[8 * n]};
-  }
-  const bool active = st[9 * n] > 0.5f;
-
-  if (!active) {  // pass-through: o'=o, d'=d, tp'=tp, no hit, no sky
-    A[0] = go2.x; A[n] = go2.y; A[2 * n] = go2.z;
-    A[3 * n] = gd2.x; A[4 * n] = gd2.y; A[5 * n] = gd2.z;
-    A[6 * n] = gtp2.x; A[7 * n] = gtp2.y; A[8 * n] = gtp2.z;
-    A[9 * n] = 0.0f;
-    A[10 * n] = 0.0f;
-    for (int k = 0; k < 6; ++k) Bo[k * n] = 0.0f;
-    for (int k = 0; k < 45; ++k) C[k * n] = 0.0f;
-    return;
-  }
-
-  const V3 gpix = {gc[9 * n], gc[10 * n], gc[11 * n]};
+  const V3 gpix = {io.gpix[i], io.gpix[n + i], io.gpix[2 * n + i]};
   const V3 o = {st[0], st[n], st[2 * n]};
   const V3 d = {st[3 * n], st[4 * n], st[5 * n]};
   const V3 tp = {st[6 * n], st[7 * n], st[8 * n]};
   const float tm = io.tm[i];
-  const float* rf = io.recf + i;
-  const V3 img = {rf[0], rf[n], rf[2 * n]};
-  const float ptex = rf[6 * n];
+  V3 img = z3;
+  float ptex = 0.0f;
+  if (p.has_pair) {
+    const float* rf = io.recf + i;
+    img = {rf[0], rf[n], rf[2 * n]};
+    ptex = rf[6 * n];
+  }
 
   const int j_enc = io.j[i];
   const bool miss = j_enc < 0;
   const int j = j_enc < 0 ? 0 : j_enc;
-  const bool live = active && !miss;
+  const bool live = !miss;
   const bool is_sph = j < p.S;
   const bool is_quad = !is_sph && (j < p.S + p.Q);
 
   // ---- the lane's rows, read by index ----------------------------------
-  const float* srow = io.sph + tt::clampi(j, 0, p.S - 1) * 8;
-  const float* qrow = io.quad + tt::clampi(j - p.S, 0, p.Q - 1) * 19;
-  const int mid = (int)(j < p.S ? srow[7] : qrow[18]);
-  const float* mrf = io.mat + tt::clampi(mid, 0, p.M - 1) * 21;
+  out.js = tt::clampi(j, 0, p.S - 1);
+  out.jq = tt::clampi(j - p.S, 0, p.Q - 1);
+  const float* srow = io.sph + out.js * 8;
+  const float* qrow = io.quad + out.jq * 19;
+  out.mid = (int)(j < p.S ? srow[7] : qrow[18]);
+  const float* mrf = io.mat + tt::clampi(out.mid, 0, p.M - 1) * 21;
   const int textype = (int)mrf[18];
   const int mtype = (int)mrf[19];
   const int use_nm = (int)mrf[20];
@@ -242,6 +274,7 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
   bool upd = false;
   V3 nrm = n0;
   if (p.has_pair) {
+    const float* rf = io.recf + i;
     const V3 rnm = {rf[3 * n], rf[4 * n], rf[5 * n]};
     const float pnm = rf[7 * n];
     nmv = {2.0f * rnm.x - 1.0f, 2.0f * rnm.y - 1.0f, 2.0f * rnm.z - 1.0f};
@@ -270,12 +303,12 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
                   k_sky * (w_sky + a_sky * 1.0f * scale)};
 
   // ================= adjoint (reverse order) ============================
-  const bool amiss = active && miss;
+  const bool amiss = miss;
   const V3 g_o2 = mask(live, go2);
   const V3 g_o = mask(!live, go2);
   const V3 g_d2s = mask(live, gd2);
   const V3 g_d = mask(!live, gd2);
-  const V3 g_tp = {
+  out.gtp = {
       (live ? gtp2.x * diffuse.x : gtp2.x) + mk(amiss, gpix.x * sky.x) +
           mk(live, gpix.x * emis.x),
       (live ? gtp2.y * diffuse.y : gtp2.y) + mk(amiss, gpix.y * sky.y) +
@@ -293,9 +326,9 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
                     g_sky.y * k_sky * (0.7f * scale - 1.0f) +
                     g_sky.z * k_sky * (1.0f * scale - 1.0f);
   const float g_dy_sky = 0.5f * g_a;
-  const float g_dark = -(g_sky.x * (w_sky + a_sky * 0.5f * scale) +
-                         g_sky.y * (w_sky + a_sky * 0.7f * scale) +
-                         g_sky.z * (w_sky + a_sky * 1.0f * scale));
+  out.gdark = -(g_sky.x * (w_sky + a_sky * 0.5f * scale) +
+                g_sky.y * (w_sky + a_sky * 0.7f * scale) +
+                g_sky.z * (w_sky + a_sky * 1.0f * scale));
 
   // emission: emis = kem * ecol
   const float g_kem =
@@ -317,7 +350,7 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
   g_checker = add(g_checker, mask(m_chk_d, g_diffuse));
   const V3 g_base = mask(m_base, g_diffuse);
 
-  const V3 gimg = mask(present, g_imgfb);
+  out.gimg = mask(present, g_imgfb);
   const V3 g_c1 = mask(same, g_checker);
   const V3 g_c2 = mask(!same, g_checker);
 
@@ -404,7 +437,8 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
   }
 
   // ---------- normal-map adjoint ----------
-  V3 grnm = z3, g_tan = z3, g_bitan = z3, g_n0;
+  V3 g_tan = z3, g_bitan = z3, g_n0;
+  out.grnm = z3;
   if (p.has_pair) {
     const V3 g_n2 = mask(upd, g_n);
     g_n0 = mask(!upd, g_n);
@@ -415,7 +449,7 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
     g_tan = sc(nmv.x, g_v2);
     g_bitan = sc(nmv.y, g_v2);
     g_n0 = add(g_n0, sc(nmv.z, g_v2));
-    grnm = {2.0f * g_nmx, 2.0f * g_nmy, 2.0f * g_nmz};
+    out.grnm = {2.0f * g_nmx, 2.0f * g_nmy, 2.0f * g_nmz};
   } else {
     g_n0 = g_n;
   }
@@ -473,38 +507,276 @@ bounce_bwd_kernel(BwdIO io, BwdParams p) {
   g_d_s = add(g_d_s, sc(2.0f * g_a2, d));
 
   // ---------- totals ----------
-  const V3 go = add(add(g_o, g_o_q), g_o_s);
-  V3 gd = add(add(add(g_d, g_d_sc), g_d_q), g_d_s);
-  gd.y = gd.y + g_dy_sky;
-
-  A[0] = go.x; A[n] = go.y; A[2 * n] = go.z;
-  A[3 * n] = gd.x; A[4 * n] = gd.y; A[5 * n] = gd.z;
-  A[6 * n] = g_tp.x; A[7 * n] = g_tp.y; A[8 * n] = g_tp.z;
-  A[9 * n] = g_tm;
-  A[10 * n] = g_dark;
-  Bo[0] = gimg.x; Bo[n] = gimg.y; Bo[2 * n] = gimg.z;
-  Bo[3 * n] = grnm.x; Bo[4 * n] = grnm.y; Bo[5 * n] = grnm.z;
-  // gmrf: texscale(2) = 0, c1, c2, base, lc, intensity, emissive,
-  // transparency = 0, ior
-  const float cm[45] = {
-      0.0f, 0.0f, g_c1.x, g_c1.y, g_c1.z, g_c2.x, g_c2.y, g_c2.z,
-      g_base.x, g_base.y, g_base.z, g_lc.x, g_lc.y, g_lc.z, gm14, gm15,
-      0.0f, g_ior,
-      // gsrow: center, r, mb, mid = 0
-      g_tc.x, g_tc.y, g_tc.z, g_r, g_mbs.x, g_mbs.y, g_mbs.z, 0.0f,
-      // gqrow: v0, er, eu, mb, tan, bitan, mid = 0
-      g_v0.x, g_v0.y, g_v0.z, g_er.x, g_er.y, g_er.z, g_eu.x, g_eu.y,
-      g_eu.z, g_mbq.x, g_mbq.y, g_mbq.z, g_tan.x, g_tan.y, g_tan.z,
-      g_bitan.x, g_bitan.y, g_bitan.z, 0.0f};
+  out.go = add(add(g_o, g_o_q), g_o_s);
+  out.gd = add(add(add(g_d, g_d_sc), g_d_q), g_d_s);
+  out.gd.y = out.gd.y + g_dy_sky;
+  out.gtm = g_tm;
+  // gmrf columns 2-15, 17: c1, c2, base, lc, intensity, emissive, ior
+  const float mv[NMAT] = {g_c1.x,   g_c1.y,   g_c1.z,   g_c2.x, g_c2.y,
+                          g_c2.z,   g_base.x, g_base.y, g_base.z, g_lc.x,
+                          g_lc.y,   g_lc.z,   gm14,     gm15,   g_ior};
+  // gsrow columns 0-6: center, r, mb
+  const float sv[NSPH] = {g_tc.x, g_tc.y, g_tc.z, g_r,
+                          g_mbs.x, g_mbs.y, g_mbs.z};
+  // gqrow columns 0-17: v0, er, eu, mb, tan, bitan
+  const float qv2[NQUAD] = {g_v0.x,  g_v0.y,  g_v0.z,  g_er.x,  g_er.y,
+                            g_er.z,  g_eu.x,  g_eu.y,  g_eu.z,  g_mbq.x,
+                            g_mbq.y, g_mbq.z, g_tan.x, g_tan.y, g_tan.z,
+                            g_bitan.x, g_bitan.y, g_bitan.z};
 #pragma unroll
-  for (int k = 0; k < 45; ++k) C[k * n] = cm[k];
+  for (int c = 0; c < NMAT; ++c) out.mat[c] = mv[c];
+#pragma unroll
+  for (int c = 0; c < NSPH; ++c) out.sph[c] = sv[c];
+#pragma unroll
+  for (int c = 0; c < NQUAD; ++c) out.quad[c] = qv2[c];
+}
+
+__host__ __device__ constexpr int ilog2(int k) {
+  return k <= 1 ? 0 : 1 + ilog2(k / 2);
+}
+
+// Sum the K values v (K a power of two, at most 32) over the lanes of the
+// warp by a fixed tree: each exchange sends half of a lane's values and
+// keeps the other half, then a butterfly sums the last one. Lane l ends
+// with the total of value l >> (5 - log2 K), in 2K - 1 + 5 - log2 K
+// shuffles instead of 5K.
+template <int K>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[K]) {
+  const int lane = threadIdx.x & 31;
+  int o = 16;
+#pragma unroll
+  for (int h = K / 2; h >= 1; h >>= 1, o >>= 1) {
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(FULL, send, o);
+    }
+  }
+  float x = v[0];
+  for (; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// Add the cotangents v[OFF .. OFF + K) of every lane with `in` set to row
+// `id` of a row-major [., stride] table `tab` (value c lands in column
+// col(c)): lanes are grouped by id (the first remaining lane's id, a
+// ballot of equal ids), each group is summed by the fixed tree with the
+// values of non-members set to zero (padded to P2 values), and one lane
+// per value adds it to the table. Every lane of the warp calls it. Lanes
+// whose values are all +-0 join no group: adding them changes no bit.
+template <int P2, int OFF, int K, int N, typename Col>
+__device__ __forceinline__ void group_add(float* tab, int stride, int id,
+                                          bool in, const float (&v)[N],
+                                          Col col) {
+  static_assert(K <= P2 && P2 <= 32 && (P2 & (P2 - 1)) == 0, "P2");
+  static_assert(OFF + K <= N, "OFF + K");
+  const int lane = threadIdx.x & 31;
+  constexpr int SH = 5 - ilog2(P2);  // lanes per value: 1 << SH
+  bool nz = false;
+#pragma unroll
+  for (int c = 0; c < K; ++c) nz = nz || (v[OFF + c] != 0.0f);  // NaN too
+  unsigned todo = __ballot_sync(FULL, in && nz);
+  while (todo) {
+    const int gid = __shfl_sync(FULL, id, __ffs(todo) - 1);
+    const unsigned grp = __ballot_sync(FULL, in && nz && id == gid);
+    todo &= ~grp;
+    const bool mem = (grp >> lane) & 1u;
+    float w[P2];
+#pragma unroll
+    for (int c = 0; c < P2; ++c)
+      w[c] = (c < K && mem) ? v[OFF + (c < K ? c : 0)] : 0.0f;
+    const float s = warp_reduce_scatter(w);
+    const int c = lane >> SH;
+    if ((lane & ((1 << SH) - 1)) == 0 && c < K)
+      tab[col(OFF + c) * stride + gid] += s;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+bounce_bwd_kernel(BwdIO io, BwdParams p) {
+  extern __shared__ float smem[];
+  int* order = reinterpret_cast<int*>(smem);  // [SUPER] lanes, active first
+  int* wcnt = order + SUPER;                  // [ROUNDS * WARPS] active
+  const int C = 18 * p.M + 8 * p.S + 19 * p.Q + 1;
+  float* tabs = p.smem_tables
+                    ? smem + SUPER + ROUNDS * WARPS
+                    : io.wtab + (size_t)blockIdx.x * WARPS * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* wt = tabs + (size_t)warp * C;
+  for (int e = lane; e < C; e += 32) wt[e] = 0.0f;
+  __syncwarp();
+  float* tmat = wt;
+  float* tsph = wt + 18 * p.M;
+  float* tquad = tsph + 8 * p.S;
+  float* tdark = tquad + 19 * p.Q;
+
+  const int n = p.n;
+  const bool last = p.last != 0;
+  const int tiles = (n + SUPER - 1) / SUPER;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * SUPER;
+    const int nv = min(SUPER, n - t0);
+    // list this tile's lanes, the active ones first, each part in lane
+    // order (lane r * THREADS + tid is thread tid's in round r)
+    bool act[ROUNDS];
+    unsigned bal[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = r * THREADS + tid;
+      act[r] = k < nv && io.st10[9 * (size_t)n + t0 + k] > 0.5f;
+      bal[r] = __ballot_sync(FULL, act[r]);
+      if (lane == 0) wcnt[r * WARPS + warp] = __popc(bal[r]);
+    }
+    __syncthreads();
+    int n_act = 0;
+    for (int q = 0; q < ROUNDS * WARPS; ++q) n_act += wcnt[q];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      int before = 0;
+      for (int q = 0; q < r * WARPS + warp; ++q) before += wcnt[q];
+      const int k = r * THREADS + tid;
+      const int arank = before + __popc(bal[r] & ((1u << lane) - 1u));
+      if (k < nv) order[act[r] ? arank : n_act + k - arank] = k;
+    }
+    __syncthreads();
+
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int slot = r * THREADS + tid;
+      if (r * THREADS >= nv) break;  // uniform
+      const bool has = slot < nv;
+      const int i = has ? t0 + order[slot] : 0;
+      const bool active = slot < n_act;
+      V3 go2 = {0.0f, 0.0f, 0.0f}, gd2 = go2, gtp2 = go2;
+      float gtm0 = 0.0f;
+      if (has && !last) {
+        const float* gn = io.gnext + i;
+        go2 = {gn[0], gn[n], gn[2 * n]};
+        gd2 = {gn[3 * n], gn[4 * n], gn[5 * n]};
+        gtp2 = {gn[6 * n], gn[7 * n], gn[8 * n]};
+        gtm0 = gn[9 * n];
+      }
+      LaneOut o;
+      if (active) {
+        lane_adjoint(io, p, i, go2, gd2, gtp2, o);
+      } else {  // pass-through: o'=o, d'=d, tp'=tp, no hit, no sky
+        o.go = go2;
+        o.gd = gd2;
+        o.gtp = gtp2;
+        o.gtm = 0.0f;
+        o.gimg = o.grnm = V3{0.0f, 0.0f, 0.0f};
+      }
+      if (has) {
+        float* A = io.a + i;
+        A[0] = o.go.x; A[n] = o.go.y; A[2 * n] = o.go.z;
+        A[3 * n] = o.gd.x; A[4 * n] = o.gd.y; A[5 * n] = o.gd.z;
+        A[6 * n] = o.gtp.x; A[7 * n] = o.gtp.y; A[8 * n] = o.gtp.z;
+        A[9 * n] = last ? o.gtm : (active ? gtm0 + o.gtm : gtm0);
+        if (p.has_pair) {
+          float* Bo = io.b + i;
+          Bo[0] = o.gimg.x; Bo[n] = o.gimg.y; Bo[2 * n] = o.gimg.z;
+          Bo[3 * n] = o.grnm.x; Bo[4 * n] = o.grnm.y; Bo[5 * n] = o.grnm.z;
+        }
+      }
+      // the row cotangents of the active lanes onto the warp's tables;
+      // the dead lanes' are zero
+      if (r * THREADS + warp * 32 < n_act) {  // uniform in the warp
+        if (!active) {
+#pragma unroll
+          for (int c = 0; c < NMAT; ++c) o.mat[c] = 0.0f;
+#pragma unroll
+          for (int c = 0; c < NSPH; ++c) o.sph[c] = 0.0f;
+#pragma unroll
+          for (int c = 0; c < NQUAD; ++c) o.quad[c] = 0.0f;
+          o.gdark = 0.0f;
+          o.js = o.jq = o.mid = 0;
+        }
+        // the plain one-hot product drops a material id outside [0, M)
+        const auto same = [](int c) { return c; };
+        group_add<16, 0, NMAT>(
+            tmat, p.M, o.mid, active && o.mid >= 0 && o.mid < p.M, o.mat,
+            [](int c) { return c < 14 ? c + 2 : 17; });
+        group_add<8, 0, NSPH>(tsph, p.S, o.js, active, o.sph, same);
+        // the quad row in two parts: 16 + 2 values pad to fewer than 32
+        group_add<16, 0, 16>(tquad, p.Q, o.jq, active, o.quad, same);
+        group_add<2, 16, 2>(tquad, p.Q, o.jq, active, o.quad, same);
+        const float dk[1] = {o.gdark};
+        group_add<1, 0, 1>(tdark, 1, 0, active, dk, same);
+      }
+    }
+    __syncthreads();  // the next tile rewrites order and wcnt
+  }
+  // the block's partial row: its warps' tables summed in warp order
+  float* part = io.part + (size_t)blockIdx.x * C;
+  for (int e = tid; e < C; e += THREADS) {
+    float s = tabs[e];
+    for (int w = 1; w < WARPS; ++w) s = s + tabs[(size_t)w * C + e];
+    part[e] = s;
+  }
+}
+
+// acc_out[e] = acc[e] + the blocks' partial rows: 32 entries a block, its
+// RGROUPS warps each summing a contiguous range of partial rows in order,
+// then the ranges in order
+__global__ void __launch_bounds__(32 * RGROUPS)
+bounce_bwd_reduce(const float* acc, const float* part, float* acc_out,
+                  int C, int blocks) {
+  __shared__ float sums[RGROUPS][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  const int per = (blocks + RGROUPS - 1) / RGROUPS;
+  const int lo = min(blocks, g * per), hi = min(blocks, lo + per);
+  float s = 0.0f;
+  if (e < C && lo < hi) {
+    s = part[(size_t)lo * C + e];
+    for (int b = lo + 1; b < hi; ++b) s = s + part[(size_t)b * C + e];
+  }
+  sums[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && e < C) {
+    float t = sums[0][lane];
+    for (int q = 1; q < RGROUPS; ++q)
+      if (q * per < blocks) t = t + sums[q][lane];
+    acc_out[e] = acc[e] + t;
+  }
 }
 
 }  // namespace
 
 extern "C" int tt_bounce_bwd(const BwdIO* io, const BwdParams* prm,
                              void* stream) {
-  const int blocks = (prm->n + THREADS - 1) / THREADS;
-  bounce_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(*io, *prm);
+  const BwdParams p = *prm;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p.n <= 0) return 0;
+  const int C = 18 * p.M + 8 * p.S + 19 * p.Q + 1;
+  // the wrapper keeps the warp tables in shared memory only below 48 KB
+  const size_t smem = sizeof(int) * (SUPER + ROUNDS * WARPS) +
+                      (p.smem_tables ? sizeof(float) * WARPS * C : 0);
+  // one wave of blocks, at most max_blocks (the scratch's rows) and at
+  // most one per tile
+  // (the device's wave for the last shared-memory size, kept: the
+  // occupancy query costs more host time than the launch)
+  static int last_dev = -1, sms = 0, per_sm = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != last_dev || smem != last_smem) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bounce_bwd_kernel, THREADS, smem);
+    last_dev = dev;
+    last_smem = smem;
+  }
+  const int tiles = (p.n + SUPER - 1) / SUPER;
+  int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  blocks = blocks < p.max_blocks ? blocks : p.max_blocks;
+  blocks = blocks < tiles ? blocks : tiles;
+  if (blocks < 1) blocks = 1;
+  bounce_bwd_kernel<<<blocks, THREADS, smem, s>>>(*io, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bounce_bwd_reduce<<<(C + 31) / 32, 32 * RGROUPS, 0, s>>>(
+      io->acc, io->part, io->acc_out, C, blocks);
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,9 @@ is no replay forward and no autodiff graph.
 tensors), with the JAX package's expressions in the JAX package's order.
 It is the body of the plain PyTorch version of the bounce-adjoint kernel
 (`tracer_torch/kernels/shade_bwd.py`); `replay_backward` drives the sweep
-through that kernel's wrapper, accumulates the per-lane row cotangents into
-the small scene tables, and maps them back to scene fields.
+through that kernel's wrapper, which also adds the per-lane row
+cotangents onto the small running tables, and maps the tables back to
+scene fields.
 
 Scene-class gate (`hand_bwd_ok`): no meshes, no lights, no sky image, no
 textured spheres, no emissive TEX_IMAGE material, and either no atlas or
@@ -521,8 +522,7 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
     S = scene.sph_center.shape[0]
     Q = scene.quad_v0.shape[0]
     tables = kbwd.bwd_tables(scene)
-    sph_pack, quad_pack, mat21 = tables
-    M = mat21.shape[0]
+    M = tables[2].shape[0]
     no_atlas = (scene.tex_data.shape[0] <= 1
                 and scene.nm_data.shape[0] <= 1)
     has_pair = not no_atlas
@@ -533,39 +533,24 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
         gp = gp / float(B)   # the _finish /B quirk
     gpix = gp.contiguous()
 
-    def run_bounce(b, gcar, last):
-        reci, recf = rec[b]
-        bk = rng.salted(keys, b)
-        a, bb, cc = kbwd.bounce_bwd_tiles(
-            states[b], reci[0], recf, tables, bk, time, gcar,
-            float(B - b), float(scene.dark_sky), S=S, Q=Q, ref=ref,
-            eps=cfg.epsilon, has_pair=has_pair, last=last,
-            kernels=cfg.kernels)
-        js, jq, mid = kbwd.row_ids(reci[0], sph_pack, quad_pack)
-        return a, bb, cc, js, jq, mid
-
-    # ---- last bounce: its input state is the final recorded one
-    gcar = torch.cat([torch.zeros((9, N), dtype=f32, device=dev), gpix])
-    a, _, cc, js, jq, mid = run_bounce(B - 1, gcar, True)
-    zeros = dict(dtype=f32, device=dev)
-    gmatf = _onehot_accum(torch.zeros((18, M), **zeros), mid, cc[0:18])
-    gsph = _onehot_accum(torch.zeros((8, S), **zeros), js, cc[18:26])
-    gquad = _onehot_accum(torch.zeros((19, Q), **zeros), jq, cc[26:45])
-    gcar = torch.cat([a[0:9], gpix])
-    gtm = a[9]
-    gdark = torch.sum(a[10])
-
-    # ---- reverse sweep over bounces B-2 .. 0
+    # one call per bounce, B-1 down to 0: each adds its row cotangents to
+    # the running tables `acc` and hands its `a` (go, gd, gtp and the
+    # running gtm) to the call of the bounce before; the last bounce's
+    # input state is the final recorded one
+    acc = torch.zeros(kbwd.table_size(S, Q, M), dtype=f32, device=dev)
+    a = None
     gtex = [None] * (B - 1)
-    for b in range(B - 2, -1, -1):
-        a, bb, cc, js, jq, mid = run_bounce(b, gcar, False)
-        gmatf = _onehot_accum(gmatf, mid, cc[0:18])
-        gsph = _onehot_accum(gsph, js, cc[18:26])
-        gquad = _onehot_accum(gquad, jq, cc[26:45])
-        gcar = torch.cat([a[0:9], gpix])
-        gtm = gtm + a[9]
-        gdark = gdark + torch.sum(a[10])
-        gtex[b] = bb
+    for b in range(B - 1, -1, -1):
+        reci, recf = rec[b]
+        a, bb, acc = kbwd.bounce_bwd_tiles(
+            states[b], reci[0], recf, tables, rng.salted(keys, b), time, a,
+            gpix, acc, float(B - b), float(scene.dark_sky), S=S, Q=Q,
+            ref=ref, eps=cfg.epsilon, has_pair=has_pair, last=b == B - 1,
+            kernels=cfg.kernels)
+        if b < B - 1:
+            gtex[b] = bb
+    gmatf, gsph, gquad, gdark = kbwd.table_views(acc, S, Q, M)
+    zeros = dict(dtype=f32, device=dev)
 
     # ---- map table cotangents back to scene fields
     gmatf, gsph, gquad = gmatf.t(), gsph.t(), gquad.t()
@@ -584,4 +569,4 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
         mat_light_intensity=gmatf[:, 14], mat_emissive=gmatf[:, 15],
         mat_transparency=gmatf[:, 16], mat_ior=gmatf[:, 17],
         dark_sky=gdark.reshape(scene.dark_sky.shape))
-    return gscene, gcar[0:3], gcar[3:6], gtm, gtex
+    return gscene, a[0:3], a[3:6], a[9], gtex

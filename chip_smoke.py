@@ -2,8 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/`, holds
-each against its plain PyTorch version at the flagship shapes, renders the
+Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
+each kernel's registers and spills), holds each against its plain PyTorch
+version at the flagship shapes (B1 and B2 bounce by bounce, all six
+bounces of both boxes, with each bounce's live share and the byte and
+operation bounds of the slim record and the in-place state), renders the
 Cornell box at 850x480, 16 spp, 6 bounces through
 `tracer_torch.render.renderer.render`, checks that the render went through
 the forward kernels, and repeats the checks on a Cornell whose textures and
@@ -25,8 +28,16 @@ random_spheres, whose shadows test tables only), with each ray's walk steps
 and probes of the JAX package's sorted dispatch in front of them; B1 and B2
 with mesh and light inputs, and the renders of flamingo_standin (16 spp)
 and random_spheres (4 spp) through `render`, their launch counts and their
-1-spp radiance held against the plain path. Every phase prints one line;
-any failure is an uncaught exception and a non-zero exit. The last two
+1-spp radiance held against the plain path. Last, the scenes that the
+first port's fixed limits refused: lit walls of 700, 1,300 and 3,000
+quads (`testing.tiled_wall`: the tables of B1, then B2 and B6 outgrow
+dynamic shared memory and are read through L2) and 17 meshes
+(`testing.mesh_grid`: B5 keeps 16 roots in shared memory and reads the
+17th through L1), B5, B1, B6 and B2 against their plain versions at
+bounces 0 and 1, with the table variant each took (checked against the
+one the case is there to exercise).
+Every phase prints one line; any failure is an uncaught exception and a
+non-zero exit. The last two
 lines are a JSON record of the kernels and `{"ok": true, ...}`.
 
 Tolerances: discrete outputs (winning primitive, material, texel indices,
@@ -76,7 +87,8 @@ from tracer_torch.render.camera import default_camera  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
 from tracer_torch.testing import (  # noqa: E402
-    FULL, fill_cornell_textures, flamingo_pond_standin, flamingo_standin)
+    FULL, fill_cornell_textures, flamingo_pond_standin, flamingo_standin,
+    mesh_grid, tiled_wall)
 
 W, H, SPP, BOUNCES = 850, 480, 16, 6
 PAIR_SPP = 2
@@ -92,6 +104,12 @@ F32_OPS_PER_S = 67e12       # H100 SXM peak f32 rate outside the tensor cores
 # compares); a sphere or quad test of the shadow pass; a shadow sample ray
 # (jitter draw, offset, length, normalisation, origin) with its hashes
 OPS_VISIT, OPS_TRI, OPS_TABLE, OPS_SAMPLE = 27, 45, 30, 60
+# B1: a live lane's winner detail (a sphere's or a quad's: dot and cross
+# products, two square roots, three divisions), on top of OPS_TABLE per
+# sphere and quad it tests; B2: an active lane's shading and scatter
+# (sky, material select, checker, normal map, emission, BSDF, hash rounds,
+# state update) and each light's term
+OPS_DETAIL, OPS_SHADE, OPS_LIGHT = 60, 150, 25
 DEV = torch.device("cuda", 0)
 DISCRETE = ("j", "tid", "mid", "row", "sub", "idx_t", "idx_n", "active")
 TRAINABLE = ("mat_diffuse", "sph_center", "tex_data")
@@ -131,6 +149,30 @@ def enqueue_ms(fn, reps):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return f"{(t1 - t0) * 1e3 / reps:.4f}"
+
+
+def timed_fresh(fn, make, reps):
+    """ms per call on the card of fn(x), each call on its own input x =
+    make(), all made before the timed window: a call that updates its
+    input in place (B2) is not timed on its own output."""
+    xs = [make() for _ in range(reps + 1)]
+    fn(xs[0])
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for x in xs[1:]:
+        fn(x)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms_fresh(fn, make, reps, kernel):
+    """`device_ms` of fn(x), each call on its own input x = make(), all
+    made before the profiled window."""
+    xs = iter([make() for _ in range(reps + 1)])
+    return device_ms(lambda: fn(next(xs)), reps, kernel)
 
 
 def device_ms(fn, reps, kernel):
@@ -246,9 +288,16 @@ def check(name, mism, err):
                              f"max_abs_err {err:.3g} > {ATOL}")
 
 
-def kernel_phase(label, scene, stats):
-    """B1 and B2 against their plain versions at the flagship shapes:
-    bounce-0 camera rays and bounce-1 scattered rays of one sample."""
+def kernel_phase(label, scene, stats, bounces=(0, 1)):
+    """B1 and B2 against their plain versions at the flagship shapes,
+    bounce by bounce: camera rays, then the rays the plain path scatters
+    from them. Each line gives the live share, the kernel's device time and
+    per-call time (B1 as the bounce loop calls it, the slim record; B2 on
+    a fresh copy of the state per call, since it updates it in place),
+    `bound_ms` (the function's full outputs for every lane, as the first
+    kernels wrote them), `bound_new_ms` (the bytes the slim record and the
+    in-place state need), the operations bound `ops_ms` and `bound2_ms`,
+    the larger of `bound_new_ms` and `ops_ms`."""
     cam = default_camera(W / H, device=DEV)
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
     o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
@@ -259,7 +308,10 @@ def kernel_phase(label, scene, stats):
     state = integrator._init_state(o, d, tm)
     winners = set()
     Nm = scene.mesh_mat.shape[0]
-    for b in (0, 1):
+    S, Q = scene.sph_center.shape[0], scene.quad_v0.shape[0]
+    L = scene.light_pos.shape[0]
+    n_tests = min(scene.n_sph_real, S) + min(scene.n_quad_real, Q)
+    for b in bounces:
         bkeys = rng.salted(keys, b)
         args = (scene, state["o"], state["d"], state["time"],
                 state["active"], 1e-5, int(use_pair))
@@ -270,9 +322,9 @@ def kernel_phase(label, scene, stats):
                 tables=tables.tree)
             mesh_in = dict(t_mesh=t_raw, tri_mesh=tri_raw, mesh=tables.mesh)
 
-        def fh(mode):
+        def fh(mode, slim=False):
             return kintersect.first_hits(*args, kernels=mode, tables=itab,
-                                         **mesh_in)
+                                         slim=slim, **mesh_in)
 
         k1 = fh("auto")
         k1p = fh("off")
@@ -280,20 +332,28 @@ def kernel_phase(label, scene, stats):
         mism, err = compare(k1, k1p, live)
         check(f"first_hits {label} b{b}", mism, err)
         winners |= set(k1p["j"][live].unique().tolist())
-        ms = timed(lambda: fh("auto"), 20)
+        N, n_live = live.numel(), int(live.sum())
+        ms = timed(lambda: fh("auto", True), 20)
         pms = timed(lambda: fh("off"), 3)
         bms = bound_ms(lane_bytes(live, args[1:4], mesh_in.get("t_mesh"),
                                   mesh_in.get("tri_mesh"))
                        + nbytes(itab, k1, mesh_in.get("mesh")))
-        say("B1", scene=label, bounce=b, rays=int(live.sum()),
-            meshes=Nm, mesh_winners=int((k1p["j"][live] >= scene.sph_center
-                                         .shape[0] + scene.quad_v0.shape[0])
-                                        .sum()),
+        nb_new = (first_hits_bytes(live, int(use_pair), Nm)
+                  + nbytes(itab, mesh_in.get("mesh")))
+        ops = n_live * (n_tests * OPS_TABLE + OPS_DETAIL)
+        b2ms, by = bound2(nb_new, ops)
+        say("B1", scene=label, bounce=b, rays=n_live,
+            live_share=f"{n_live / N:.3f}",
+            meshes=Nm, mesh_winners=int((k1p["j"][live] >= S + Q).sum()),
+            tables=kintersect.TABLES, blocks=kintersect.BLOCKS,
             mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
             plain_ms=f"{pms:.4f}",
-            device_ms=device_ms(lambda: fh("auto"), 20, "first_hits"),
-            bound_ms=f"{bms:.4f}")
-        stats["first_hits"].append(Rec(err, ms, pms, bms))
+            device_ms=device_ms(lambda: fh("auto", True), 20, "first_hits"),
+            bound_ms=f"{bms:.4f}", bound_new_ms=f"{bound_ms(nb_new):.4f}",
+            ops_ms=f"{ops / F32_OPS_PER_S * 1e3:.4f}",
+            bound2_ms=f"{b2ms:.4f}", bound_by=by)
+        # the record's bound is that of the contract timed: the slim record
+        stats["first_hits"].append(Rec(err, ms, pms, b2ms, by))
         nxt = None
         for compat, last in (("reference", False), ("reference", True),
                              ("physical", False)):
@@ -302,60 +362,106 @@ def kernel_phase(label, scene, stats):
                 scene, cfg, k1p["p"], state["time"], bkeys,
                 live & (k1p["j"] >= 0), tables)
 
-            def sh(mode):
+            def sh(mode, st):
                 return kshade.shade_scatter(
-                    scene, cfg, state, bkeys, k1p, BOUNCES - b,
+                    scene, cfg, st, bkeys, k1p, BOUNCES - b,
                     shadows=shadows, use_pair=use_pair, last=last,
-                    kernels=mode, tables=stab, mesh=tables.mesh)
+                    kernels=mode, tables=stab, mesh=tables.mesh,
+                    quad=itab[1])
 
-            got, want = sh("auto"), sh("off")
+            def fresh():
+                return integrator.copy_state(state)
+
+            got, want = sh("auto", fresh()), sh("off", fresh())
             if last:
                 got, want = dict(acc=got), dict(acc=want)
             mism, err = compare(got, want)
             # physical draws cos/sin, which may differ by an ulp
             check(f"shade_scatter {label} b{b} {compat} last={last}",
                   mism, err)
-            ms = timed(lambda: sh("auto"), 20)
-            pms = timed(lambda: sh("off"), 3)
+            ms = timed_fresh(lambda st: sh("auto", st), fresh, 20)
+            pms = timed_fresh(lambda st: sh("off", st), fresh, 3)
             # mesh winners also read tid and their 24-float pack row
-            mesh_rows = 100 * int((live & (k1p["j"] >= scene.sph_center
-                                           .shape[0] + scene.quad_v0.shape[0]))
-                                  .sum())
-            bms = bound_ms(shade_bytes(state, use_pair, last, got,
-                                       scene.light_pos.shape[0])
-                           + mesh_rows)
+            hits = live & (k1p["j"] >= 0)
+            mesh_rows = 100 * int((live & (k1p["j"] >= S + Q)).sum())
+            bms = bound_ms(shade_bytes(state, use_pair, last, L) + mesh_rows)
+            nb_new = shade_bytes_new(live, hits, use_pair, last, L) + \
+                mesh_rows + nbytes(stab[:2])
+            ops = n_live * (OPS_SHADE + L * OPS_LIGHT)
+            b2ms, by = bound2(nb_new, ops)
             say("B2", scene=label, bounce=b, compat=compat, last=last,
-                meshes=Nm, lights=scene.light_pos.shape[0],
+                meshes=Nm, lights=L, active=n_live,
+                live_share=f"{n_live / N:.3f}",
+                hit_share=f"{int(hits.sum()) / N:.3f}",
+                tables=kshade.TABLES, blocks=kshade.BLOCKS,
                 mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
                 plain_ms=f"{pms:.4f}",
-                device_ms=device_ms(lambda: sh("auto"), 20, "shade_scatter"),
-                bound_ms=f"{bms:.4f}")
-            stats["shade_scatter"].append(Rec(err, ms, pms, bms))
+                device_ms=device_ms_fresh(lambda st: sh("auto", st), fresh,
+                                          20, "shade_scatter"),
+                bound_ms=f"{bms:.4f}",
+                bound_new_ms=f"{bound_ms(nb_new):.4f}",
+                ops_ms=f"{ops / F32_OPS_PER_S * 1e3:.4f}",
+                bound2_ms=f"{b2ms:.4f}", bound_by=by)
+            # the record's bound is that of the contract timed: in place
+            stats["shade_scatter"].append(Rec(err, ms, pms, b2ms, by))
             if compat == "reference" and not last:
                 nxt = want
         state = nxt
-    S, Q = scene.sph_center.shape[0], scene.quad_v0.shape[0]
     prims = set(range(scene.n_sph_real)) | set(
         range(S, S + scene.n_quad_real))
     say("B1", scene=label, primitives_that_win=len(winners & prims),
         of=len(prims))
 
 
-def shade_bytes(state, use_pair, last, out, n_lights=0):
-    """What B2 must read and write per call: the state and hit fields its
-    outputs depend on, and the outputs. Every lane reads its active flag
-    and acc, and before the last bounce o, d and throughput (a lane that
-    is not active passes them on). An active lane also reads j, mid, u, v
-    and its shadow factors; on the last bounce throughput and d.y (sky),
-    before it the key, p and n; with the pair atlas row, sub, ptex, pnm,
-    the two texel words and the tangent frame. Every f32 / i32 is 4 B."""
+def first_hits_bytes(live, tex_out, n_meshes):
+    """What B1 must read and write per call under the slim record: every
+    lane's live flag and the integer fields a consumer indexes with
+    (j, tid, mid, row, sub; with tex_out=2 also idx_t, idx_n); a live
+    lane's o, d, time and mesh hits (t, tri per mesh), and its p, n, u,
+    v. Every f32 / i32 is 4 B."""
+    n_int = 7 if tex_out == 2 else 5
+    return (nbytes(live) + 4 * live.numel() * n_int
+            + 4 * int(live.sum()) * (7 + 2 * n_meshes + 8))
+
+
+def shade_bytes(state, use_pair, last, n_lights=0, rec_out=False):
+    """What B2 must read and write per call, as the first kernel's
+    contract had it (a fresh output for every lane): the state and hit
+    fields its outputs depend on, and the outputs. Every lane reads its
+    active flag and acc, and before the last bounce o, d and throughput (a
+    lane that is not active passes them on). An active lane also reads j,
+    mid, u, v and its shadow factors; on the last bounce throughput and
+    d.y (sky), before it the key, p and n; with the pair atlas row, sub,
+    ptex, pnm, the two texel words and the tangent frame. The outputs, as
+    counted then: acc, before the last bounce also o, d, time, throughput
+    and the active flags; with rec_out the [6, N] texel record. Every f32
+    / i32 is 4 B."""
     active = state["active"]
+    N = active.numel()
     every = 3 + (0 if last else 3 + 3 + 3)
     live = 1 + 1 + 2 + n_lights + (3 + 1 if last else 1 + 3 + 3)
     if use_pair:
         live += 4 + 2 + 6
-    return (nbytes(active) + 4 * (active.numel() * every
-                                  + int(active.sum()) * live) + nbytes(out))
+    out = (4 * N * (3 if last else 13) + (0 if last else N)
+           + (24 * N if rec_out else 0))
+    return nbytes(active) + 4 * (N * every + int(active.sum()) * live) + out
+
+
+def shade_bytes_new(active, hits, use_pair, last, n_lights=0):
+    """What B2 must read and write per call with the state in place:
+    every lane's active flag; an active lane's j, mid, u, v, p, n, d,
+    throughput, acc and shadow factors, with the pair atlas row, sub and
+    the two texel words, before the last bounce its key; it writes acc,
+    and before the last bounce a lane that hits its o, d and throughput, a
+    lane that misses its active flag. Every f32 / i32 is 4 B."""
+    n_act, n_hit = int(active.sum()), int(hits.sum())
+    rd = 2 + 2 + 3 + 3 + 3 + 3 + 3 + n_lights + (0 if last else 1)
+    if use_pair:
+        rd += 4
+    wr = 4 * 3 * n_act
+    if not last:
+        wr += 4 * 9 * n_hit + (n_act - n_hit)
+    return nbytes(active) + 4 * rd * n_act + wr
 
 
 def record_phase(scene, stats):
@@ -372,10 +478,11 @@ def record_phase(scene, stats):
     for b in (0, 1):
         bkeys = rng.salted(keys, b)
 
-        def fh(mode):
+        def fh(mode, slim=False):
             return kintersect.first_hits(
                 scene, state["o"], state["d"], state["time"],
-                state["active"], 1e-5, 2, kernels=mode, tables=itab)
+                state["active"], 1e-5, 2, kernels=mode, tables=itab,
+                slim=slim)
 
         k1, k1p = fh("auto"), fh("off")
         live = state["active"]
@@ -383,31 +490,43 @@ def record_phase(scene, stats):
         check(f"first_hits tex_out=2 b{b}", mism, err)
         if int((k1p["idx_t"][live] > 0).sum()) == 0:
             raise AssertionError("tex_out=2: no lane reads the atlas")
-        ms = timed(lambda: fh("auto"), 20)
+        ms = timed(lambda: fh("auto", True), 20)
         say("B1-rec", scene="cornell_textured", bounce=b, tex_out=2,
-            rays=int(live.sum()), mismatches=mism, max_abs_err=f"{err:.3g}",
+            rays=int(live.sum()),
+            live_share=f"{int(live.sum()) / live.numel():.3f}",
+            mismatches=mism, max_abs_err=f"{err:.3g}",
             ms=f"{ms:.4f}", plain_ms=f"{timed(lambda: fh('off'), 3):.4f}",
-            device_ms=device_ms(lambda: fh("auto"), 20, "first_hits"),
+            device_ms=device_ms(lambda: fh("auto", True), 20, "first_hits"),
             bound_ms=f"{bound_ms(lane_bytes(live, state['o'], state['d'],
                                             state['time'])
-                                 + nbytes(itab, k1)):.4f}")
+                                 + nbytes(itab, k1)):.4f}",
+            bound_new_ms=f"{bound_ms(first_hits_bytes(live, 2, 0)
+                                     + nbytes(itab)):.4f}")
         stats["first_hits"].append(Rec(err, ms, None, None))
 
-        def sh(mode):
+        def sh(mode, st):
             return kshade.shade_scatter(
-                scene, cfg, state, bkeys, k1p, BOUNCES - b, use_pair=True,
-                kernels=mode, tables=stab, rec_out=True)
+                scene, cfg, st, bkeys, k1p, BOUNCES - b, use_pair=True,
+                kernels=mode, tables=stab, rec_out=True, quad=itab[1])
 
-        (got, grec), (want, wrec) = sh("auto"), sh("off")
+        def fresh():
+            return integrator.copy_state(state)
+
+        (got, grec), (want, wrec) = sh("auto", fresh()), sh("off", fresh())
         mism, err = compare(dict(got, rec=grec), dict(want, rec=wrec))
         check(f"shade_scatter rec_out b{b}", mism, err)
-        ms = timed(lambda: sh("auto"), 20)
-        bms = bound_ms(shade_bytes(state, True, False, (got, grec)))
+        ms = timed_fresh(lambda st: sh("auto", st), fresh, 20)
+        bms = bound_ms(shade_bytes(state, True, False, rec_out=True))
+        hits = live & (k1p["j"] >= 0)
+        nb_new = (shade_bytes_new(live, hits, True, False)
+                  + nbytes(grec) + nbytes(stab[:2]))
         say("B2-rec", scene="cornell_textured", bounce=b, rec_out=True,
+            live_share=f"{int(live.sum()) / live.numel():.3f}",
             mismatches=mism, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
-            plain_ms=f"{timed(lambda: sh('off'), 3):.4f}",
-            device_ms=device_ms(lambda: sh("auto"), 20, "shade_scatter"),
-            bound_ms=f"{bms:.4f}")
+            plain_ms=f"{timed_fresh(lambda st: sh('off', st), fresh, 3):.4f}",
+            device_ms=device_ms_fresh(lambda st: sh("auto", st), fresh, 20,
+                                      "shade_scatter"),
+            bound_ms=f"{bms:.4f}", bound_new_ms=f"{bound_ms(nb_new):.4f}")
         stats["shade_scatter"].append(Rec(err, ms, None, None))
         state = want
 
@@ -803,6 +922,10 @@ def profile_phase(label, sb, trainable=TRAINABLE):
     # the sweep adds the row cotangents inside B3: the only matmuls left
     # are the two small ones per backward that map the tables' motion blur
     # onto mat_mb, none per bounce
+    def device_of(part):
+        return sum(e.self_device_time_total for e in evs
+                   if part in e.key) / 1e3
+
     gemms = launches_of("gemm")
     if trainable and gemms > 2 * SPP:
         raise AssertionError(f"profile {label}: {gemms} GEMM launches in "
@@ -813,6 +936,10 @@ def profile_phase(label, sb, trainable=TRAINABLE):
         idle_share=f"{1.0 - busy_ms / wall_ms:.3f}",
         device_launches=sum(e.count for e in evs),
         gemm_launches=gemms, cat_launches=launches_of("catarray"),
+        b1_device_ms=f"{device_of('first_hits_kernel'):.3f}",
+        b1_launches=launches_of("first_hits_kernel"),
+        b2_device_ms=f"{device_of('shade_scatter_kernel'):.3f}",
+        b2_launches=launches_of("shade_scatter_kernel"),
         top=[(e.key[:48], f"{e.self_device_time_total / 1e3:.2f}ms",
               e.count) for e in top])
 
@@ -899,7 +1026,8 @@ def lanes_phase_inputs(scene, tables):
             scene, state["o"], state["d"], state["time"], state["active"],
             tables=tables.intersect, t_mesh=t_raw, tri_mesh=tri_raw,
             mesh=tables.mesh)
-        out.append((b, state, k1, rng.salted(keys, b)))
+        # the bounce updates its state in place: keep a copy of its input
+        out.append((b, integrator.copy_state(state), k1, rng.salted(keys, b)))
         state, _ = integrator._bounce_core(scene, cfg, keys, state, b,
                                            tables=tables)
     return out
@@ -1121,6 +1249,123 @@ def shadow_phase(label, scene, stats):
             stats["shadow"].append(Rec(0.0, ms, pms, bms, by))
 
 
+def limits_phase(label, sb, expect):
+    """The scenes the first port's fixed limits refused on the card (B1's
+    and B6's 48 KB of shared tables, B5's and B6's 16 meshes), at one
+    850x480 sample, bounces 0 and 1: B5 (mesh scenes), B1, B6 and B2
+    against their plain versions, with 0 discrete mismatches and B5's and
+    B6's results exact, and where each kernel's tables sat: dynamic shared
+    memory or, beyond a block's 227 KB, L2. `expect` is the placement
+    (b1, b6, b2) the case is there to exercise."""
+    scene = compile_scene(sb, device=DEV)
+    tables = integrator.prepare(scene)
+    itab = tables.intersect
+    cam = default_camera(W / H, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
+    cfg = RenderConfig()
+    state = integrator._init_state(o, d, tm)
+    Nm = scene.mesh_mat.shape[0]
+    S_real, Q_real = scene.n_sph_real, scene.n_quad_real
+    S, Q = scene.sph_center.shape[0], scene.quad_v0.shape[0]
+    for b in (0, 1):
+        bkeys = rng.salted(keys, b)
+        live = state["active"]
+        mism, err, extra = 0, 0.0, {}
+        mesh_in = {}
+        if Nm > 0:
+            def walk(mode):
+                return ktraverse.mesh_closest_hits(
+                    scene, state["o"], state["d"], live, kernels=mode,
+                    tables=tables.tree)
+
+            (t_k, tri_k), (t_p, tri_p) = walk("auto"), walk("off")
+            mism += int(((t_k != t_p) | (tri_k != tri_p)).sum())
+            mesh_in = dict(t_mesh=t_p, tri_mesh=tri_p, mesh=tables.mesh)
+
+        def fh(mode):
+            return kintersect.first_hits(
+                scene, state["o"], state["d"], state["time"], live,
+                kernels=mode, tables=itab, **mesh_in)
+
+        k1, k1p = fh("auto"), fh("off")
+        extra["b1_tables"] = kintersect.TABLES
+        m1, e1 = compare(k1, k1p, live)
+        if Nm > 0:
+            # lanes won by a mesh whose root B5 reads through L1
+            beyond = int((k1p["j"][live] >= S + Q + ktraverse.ROOT_CACHE)
+                         .sum())
+            extra["b5_roots_shared"] = min(Nm, ktraverse.ROOT_CACHE)
+            extra["mesh_wins_beyond"] = beyond
+            if Nm > ktraverse.ROOT_CACHE and beyond == 0:
+                raise AssertionError(f"limits {label} b{b}: no lane hits a "
+                                     "mesh whose root is read through L1")
+        hit = live & (k1p["j"] >= 0)
+
+        def shadow(mode):
+            return kshadow.shadow_factors(
+                scene, cfg, k1p["p"], state["time"], bkeys, cfg.epsilon, hit,
+                kernels=mode, tables=tables.shadow, tree=tables.tree)
+
+        sh_k, sh_p = shadow("auto"), shadow("off")
+        extra["b6_tables"] = kshadow.TABLES
+        mism += int((sh_k != sh_p).sum())
+
+        def shade(mode):
+            return kshade.shade_scatter(
+                scene, cfg, integrator.copy_state(state), bkeys, k1p,
+                BOUNCES - b, shadows=sh_p, kernels=mode, tables=tables.shade,
+                mesh=tables.mesh, quad=itab[1])
+
+        st_k, st_p = shade("auto"), shade("off")
+        extra["b2_tables"] = kshade.TABLES
+        m2, e2 = compare(st_k, st_p)
+        mism, err = mism + m1 + m2, max(e1, e2)
+        check(f"limits {label} b{b}", mism, err)
+        took = (extra["b1_tables"], extra["b6_tables"], extra["b2_tables"])
+        if took != expect:
+            raise AssertionError(f"limits {label} b{b}: tables (B1, B6, B2) "
+                                 f"sat in {took}, expected {expect}")
+        say("limits", scene=label, bounce=b, spheres=S_real, quads=Q_real,
+            meshes=Nm, lights=scene.light_pos.shape[0],
+            live=int(live.sum()), hits=int(hit.sum()),
+            winners=len(set(k1p["j"][live].unique().tolist())),
+            # B1's rows in shared memory are padded to 12 and 48 floats
+            b1_shared_kb=f"{(S_real * 12 + Q_real * 48) * 4 / 1024:.1f}",
+            b6_table_kb=f"{(scene.light_pos.shape[0] * 4 + S_real * 9
+                            + Q_real * 20 + Nm) * 4 / 1024:.1f}",
+            b2_table_kb=f"{(tables.shade[0].numel() + tables.shade[1].numel()
+                            + scene.quad_v0.shape[0] * 8) * 4 / 1024:.1f}",
+            **extra, mismatches=mism, max_abs_err=f"{err:.3g}",
+            lit_mean=f"{float(sh_k[:, hit].mean()):.4f}")
+        state = st_p
+
+
+def ptxas_report(info):
+    """{kernel: "N registers, S B stack, spills"} from nvcc's -Xptxas -v
+    report: each 'Compiling entry function' line names the kernel that the
+    next 'Used ... registers' line and spill line describe."""
+    out, name = {}, None
+    for ln in info.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for key in ("first_hits_kernel", "shade_scatter_kernel",
+                        "bounce_bwd_kernel", "bounce_bwd_reduce",
+                        "traverse_roots", "traverse_walk", "shadow_setup",
+                        "shadow_walk", "fold_"):
+                if key in name:
+                    variant = ("<shared>" if "ILb1E" in name else "<L2>"
+                               if "ILb0E" in name else "")
+                    name = key + variant
+                    break
+        elif name and "bytes stack frame" in ln:
+            out[name] = ln.split(":")[-1].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out[name] = f"{regs}; {out.get(name, '')}"
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -1134,10 +1379,10 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.PTXAS_INFO.splitlines()
-             if "registers" in ln or "spill" in ln]
     say("build", seconds=f"{build_s:.2f}",
-        nvcc_seconds=_build.BUILD_SECONDS, ptxas=ptxas)
+        nvcc_seconds=_build.BUILD_SECONDS)
+    for k, v in ptxas_report(_build.PTXAS_INFO).items():
+        say("ptxas", kernel=k, use=v)
 
     stats = {k: [] for k in KERNEL_MODULES}
     launches = {}
@@ -1147,8 +1392,8 @@ def main():
     pair_scene = compile_scene(pair_sb, device=DEV)
     if not pair_scene.pair_mode or pair_scene.pair_pack.shape[0] <= 1:
         raise AssertionError("textured Cornell did not build a pair atlas")
-    kernel_phase("cornell", flat_scene, stats)
-    kernel_phase("cornell_textured", pair_scene, stats)
+    kernel_phase("cornell", flat_scene, stats, range(BOUNCES))
+    kernel_phase("cornell_textured", pair_scene, stats, range(BOUNCES))
     render_phase("cornell", flat_sb, SPP)
     render_phase("cornell_textured", pair_sb, PAIR_SPP)
 
@@ -1196,6 +1441,18 @@ def main():
     launches.update(traverse=mesh_launches["traverse"],
                     shadow=mesh_launches["shadow"])
     profile_phase("flamingo_standin", flam_sb, trainable=())
+    # the repaired limits: walls of quads whose tables outgrow a block's
+    # 227 KB of shared memory kernel by kernel (B1 at ~1,200 quads, B2 at
+    # ~2,000: tiled_wall gives each quad a material row; B6 at ~2,900), so
+    # that each kernel's L2 instance runs; 17 meshes, one more than B5
+    # keeps roots of in shared memory
+    sh, l2 = "shared", "global"
+    for n_quads, expect in ((700, (sh, sh, sh)), (1300, (l2, sh, sh)),
+                            (3000, (l2, l2, l2))):
+        limits_phase(f"tiled_wall_{n_quads}",
+                     tiled_wall(zoo.SceneBuilder(), n_quads), expect)
+    limits_phase("mesh_grid_17", mesh_grid(zoo.SceneBuilder(), 17, 1_000),
+                 (sh, sh, sh))
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,

@@ -8,7 +8,8 @@ fwd+bwd of `bench.py` at 850x480 (`render_pixels(...).div(16).mean()
 .backward()`, mat_diffuse, sph_center and tex_data trainable) on the
 Cornell box and the textured Cornell: one warm-up step, then 5 steps, each
 ending in `torch.cuda.synchronize()`, then one step under torch.profiler
-(device-busy ms, device launches). Prints one JSON line per box, tagged
+(device-busy ms, device launches, and the device ms of the first-hit,
+shade and bounce-adjoint kernels). Prints one JSON line per box, tagged
 with LABEL. Compare two checkouts only inside one call, in turns (parent,
 change, change, parent)."""
 import dataclasses
@@ -63,4 +64,9 @@ for name, sb in (("cornell", zoo.setup_cornell_box(W / H)),
                       "median_s": round(statistics.median(ts), 4),
                       "busy_ms": round(sum(e.self_device_time_total
                                            for e in evs) / 1e3, 2),
-                      "launches": sum(e.count for e in evs)}), flush=True)
+                      "launches": sum(e.count for e in evs),
+                      "kernel_ms": {k: round(sum(
+                          e.self_device_time_total for e in evs
+                          if k in e.key) / 1e3, 3)
+                          for k in ("first_hits", "shade_scatter",
+                                    "bounce_bwd")}}), flush=True)

@@ -156,13 +156,21 @@ def test_first_hits_plain_matches_pallas(textured, tex_out, bounce):
 
 
 def test_first_hits_dead_lane_defaults():
-    _, got, live, _ = run_both(False, 0)
+    """What a lane that is not live holds: the integer fields a consumer
+    indexes with, and no quad columns (its p, n, u, v are unspecified:
+    the CUDA kernel does not write them)."""
+    _, got, live, _ = run_both(True, 2)
     dead = ~live
     assert dead.any()
     assert (got["j"].numpy()[dead] == -1).all()
     assert (got["tid"].numpy()[dead] == -1).all()
-    assert (got["n"][2].numpy()[dead] == 1.0).all()
-    assert (got["p"][0].numpy()[dead] == 0.0).all()
+    for k in ("mid", "row", "sub", "idx_t", "idx_n"):
+        assert (got[k].numpy()[dead] == 0).all(), k
+    for k in ("tan", "bitan"):
+        for c in got[k]:
+            assert (c.numpy()[dead] == 0.0).all(), k
+    for k in ("ptex", "pnm"):
+        assert (got[k].numpy()[dead] == 0.0).all(), k
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "random_spheres"])

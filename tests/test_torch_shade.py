@@ -27,6 +27,7 @@ from tracer_torch.core.config import RenderConfig as TConfig
 from tracer_torch.kernels import intersect as tint
 from tracer_torch.kernels import shade as tshade
 from tracer_torch.render import camera as tcam
+from tracer_torch.render.integrator import copy_state
 from tracer_torch.scene import device as tdevice
 from tracer_torch.testing import fill_cornell_textures
 
@@ -131,9 +132,10 @@ def test_shade_scatter_plain_matches_pallas(name, compat, last):
     n_rem = 4
     want = jax_shade(js, JConfig(compat=compat), state, keys, k1, n_rem,
                      use_pair, shadows, last)
-    got = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys, k1,
-                               n_rem, shadows=shadows, use_pair=use_pair,
-                               last=last)
+    # the pass updates its state in place: hand it a copy
+    got = tshade.shade_scatter(ts, TConfig(compat=compat), copy_state(state),
+                               keys, k1, n_rem, shadows=shadows,
+                               use_pair=use_pair, last=last)
     if last:
         want, got = dict(acc=want), dict(acc=got)
     else:
@@ -155,20 +157,22 @@ def test_shade_scatter_plain_matches_pallas(name, compat, last):
 @pytest.mark.parametrize("last", [False, True])
 @pytest.mark.parametrize("compat", ["reference", "physical"])
 def test_shade_scatter_rec_out_matches_pallas(compat, last):
-    """The record variant: the same state outputs, plus the decoded texel
-    and raw normal-map texel of every active lane (the JAX kernel also
-    writes them on inactive lanes of a live tile; the port writes 0)."""
+    """The record variant: the same state outputs, plus the decoded texel,
+    the raw normal-map texel and the atlas masks of every active lane (the
+    JAX kernel also writes the texels on inactive lanes of a live tile; the
+    port writes 0; the masks are the first-hit record's)."""
     js = jcompile(SCENES["cornell_textured"]())
     ts = port_scene(js)
     state, keys, k1, use_pair, shadows = inputs(js, ts)
     assert use_pair
     want, wrec = jax_shade(js, JConfig(compat=compat), state, keys, k1, 4,
                            use_pair, shadows, last, rec_out=True)
-    got, rec = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys,
-                                    k1, 4, use_pair=True, last=last,
-                                    rec_out=True)
-    plain = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys, k1,
-                                 4, use_pair=True, last=last)
+    got, rec = tshade.shade_scatter(ts, TConfig(compat=compat),
+                                    copy_state(state), keys, k1, 4,
+                                    use_pair=True, last=last, rec_out=True)
+    plain = tshade.shade_scatter(ts, TConfig(compat=compat),
+                                 copy_state(state), keys, k1, 4,
+                                 use_pair=True, last=last)
     acc_got = got if last else got["acc"]
     acc_plain = plain if last else plain["acc"]
     for a in range(3):   # rec_out changes no other output
@@ -176,9 +180,11 @@ def test_shade_scatter_rec_out_matches_pallas(compat, last):
                                       acc_plain[a].numpy())
     act = state["active"].numpy()
     wrec = np.stack([np.asarray(c) for c in wrec[0] + wrec[1]])
-    assert rec.shape == (6, N)
-    np.testing.assert_allclose(rec.numpy()[:, act], wrec[:, act], atol=ATOL,
-                               rtol=0)
+    assert rec.shape == (8, N)
+    np.testing.assert_allclose(rec.numpy()[:6, act], wrec[:, act],
+                               atol=ATOL, rtol=0)
+    masks = torch.stack([k1["ptex"], k1["pnm"]]).numpy()
+    np.testing.assert_array_equal(rec.numpy()[6:, act], masks[:, act])
     assert (rec.numpy()[:, ~act] == 0.0).all()
     assert (rec.numpy()[:, act] > 0.0).any()
 
@@ -264,8 +270,8 @@ def test_shade_scatter_meshes_matches_pallas(compat, last):
         jj(k1["tid"]))
     want = jax_shade(js, JConfig(compat=compat), state, keys, k1, 3, False,
                      shadows, last, mesh_detail=md)
-    got = tshade.shade_scatter(ts, TConfig(compat=compat), state, keys, k1, 3,
-                               shadows=shadows, last=last)
+    got = tshade.shade_scatter(ts, TConfig(compat=compat), copy_state(state),
+                               keys, k1, 3, shadows=shadows, last=last)
     if last:
         want, got = dict(acc=want), dict(acc=got)
     else:

@@ -34,7 +34,7 @@ from tracer_torch.geometry import primitives as tprim
 from tracer_torch.kernels import intersect as tint
 from tracer_torch.kernels import traverse as ttrav
 from tracer_torch.scene import device as tdevice
-from tracer_torch.testing import add_standin, flamingo_standin
+from tracer_torch.testing import add_standin, flamingo_standin, mesh_grid
 
 N = 257            # not a multiple of any tile (padding paths)
 RTOL = 1e-5
@@ -239,6 +239,53 @@ def test_bounded_walk(name, kind):
         pruned += free["visits"] - cnt["visits"]
         assert (cb[:, ~live] == 0).all()
     assert n_below > 4 and n_beyond > 4 and pruned > 0
+
+
+@functools.lru_cache(maxsize=None)
+def grid_scenes():
+    """17 small stand-in meshes on a grid (more meshes than the CUDA walk's
+    first argument struct held)."""
+    js = jcompile(mesh_grid(JSceneBuilder(), 17, 60), use_native=False)
+    return js, port_scene(js)
+
+
+@pytest.mark.parametrize("kind", ["camera", "scattered"])
+def test_walk_matches_jax_at_17_meshes(kind):
+    """The walk at Nm = 17 against the JAX package's jnp walk: triangle
+    ids equal on live lanes, distances to f32 rounding, every mesh hit by
+    some ray, and the wrapper's mesh ranges are the scene's."""
+    js, ts = grid_scenes()
+    assert ts.mesh_mat.shape[0] == 17
+    rs = np.random.RandomState(3)
+    if kind == "camera":   # from the default camera toward the grid
+        o = np.tile(np.float32([0.0, 0.0, 6.1]), (N, 1))
+        tgt = np.stack([rs.uniform(-4.5, 4.5, N), rs.uniform(-2.4, 2.4, N),
+                        np.full(N, -1.0)], -1)
+    else:                  # from seeded points among the meshes
+        o = np.stack([rs.uniform(-4, 4, N), rs.uniform(-2, 2, N),
+                      rs.uniform(-0.6, 0.4, N)], -1)
+        tgt = np.stack([rs.uniform(-4.5, 4.5, N), rs.uniform(-2.4, 2.4, N),
+                        rs.uniform(-1.5, -0.5, N)], -1)
+    d = tgt - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = o.astype(np.float32)
+    live = rs.rand(N) < 0.9
+    jt, jtri = jprim.mesh_closest_hits(jnp.asarray(o), jnp.asarray(d), js,
+                                       1e-5)
+    jt, jtri = np.asarray(jt).T, np.asarray(jtri).T        # [Nm, N]
+    t, tri = ttrav.mesh_closest_hits(ts, planar(o), planar(d),
+                                     torch.from_numpy(live))
+    t, tri = t.numpy(), tri.numpy()
+    assert t.shape == (17, N)
+    np.testing.assert_array_equal(tri[:, live], jtri[:, live])
+    np.testing.assert_allclose(t[:, live], jt[:, live], rtol=RTOL, atol=0)
+    assert (tri[:, ~live] == -1).all()
+    hit_meshes = (tri[:, live] >= 0).any(axis=1)
+    assert hit_meshes.sum() >= (17 if kind == "camera" else 8)
+    ranges = ttrav.mesh_ranges(ts, torch.device("cpu"))
+    assert ranges.dtype == torch.int32 and ranges.shape == (17, 2)
+    assert ranges.tolist() == [list(x) for x in zip(ts.mesh_root,
+                                                    ts.mesh_end)]
 
 
 def test_cuda_needs_cuda_tensors():

@@ -4,8 +4,8 @@
 // tracer/kernels/traverse.py:115-170 (the same expressions in the same
 // order; built with --fmad=false, so it reproduces the plain version in
 // tracer_torch/geometry/primitives.py::skip_walk bit for bit), cut into
-// units of one node or one triangle slot, and the persistent-thread task
-// queue both kernels' walks draw from.
+// units of one node or one triangle slot, the meshes' roots and ranges,
+// and the persistent-thread task queue both kernels' walks draw from.
 //
 // Tables (tracer_torch/kernels/traverse.py::traverse_tables), read through
 // the read-only cache:
@@ -23,6 +23,8 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "common.cuh"
 
 namespace tt {
 
@@ -77,8 +79,8 @@ __device__ __forceinline__ void test_slot(const Slot& s, const Ray& r,
   }
 }
 
-// A mesh's root node, kept in shared memory: every walk of the mesh
-// starts there, so its first unit needs no load.
+// A node's data: the slab test's box, the leaf's count of real
+// triangles, its leaf row and skip.
 struct Node {
   float4 f0, f1;  // lo.xyz, hi.x; hi.yz, n_real, 0
   int2 ni;        // leaf row, skip
@@ -106,6 +108,42 @@ __device__ __forceinline__ bool slab(const Node& nd, const Ray& r,
   const float tf =
       fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return !nan && fminf(bt, tf) > fmaxf(0.0f, tn);
+}
+
+// The meshes' node ranges [Nm] (root, end) in global memory, and their
+// root nodes: every walk of a mesh starts at its root. A block may keep
+// the first `cached` roots in shared memory (cache_roots); the others are
+// read through the read-only cache. So the kernels take any number of
+// meshes.
+constexpr int ROOT_CACHE = 16;  // the roots a block keeps (768 B)
+
+struct Roots {
+  const int2* range;  // [Nm]: mesh m's node range [root, end)
+  Tree tr;
+  const Node* s;      // the first `cached` roots
+  int cached;
+
+  __device__ __forceinline__ int2 span(int m) const {
+    return __ldg(range + m);
+  }
+  // the root of mesh m, whose range is rg (rg.x < rg.y)
+  __device__ __forceinline__ Node node(int m, int2 rg) const {
+    return m < cached ? s[m] : load_node(tr, rg.x);
+  }
+};
+
+// The roots with the first ROOT_CACHE of them copied into `smem`
+// (ROOT_CACHE nodes); the caller synchronises the block before their
+// first use.
+__device__ __forceinline__ Roots cache_roots(const Tree& tr,
+                                             const int2* range,
+                                             int n_meshes, Node* smem) {
+  const int cached = n_meshes < ROOT_CACHE ? n_meshes : ROOT_CACHE;
+  for (int m = threadIdx.x; m < cached; m += blockDim.x) {
+    const int2 rg = __ldg(range + m);
+    if (rg.x < rg.y) smem[m] = load_node(tr, rg.x);
+  }
+  return Roots{range, tr, smem, cached};
 }
 
 // Where a walk goes on after the root's slab test: the next node to
@@ -222,16 +260,5 @@ struct TaskQueue {
     return got;
   }
 };
-
-// One wave of blocks of `threads` threads with `smem` dynamic bytes each.
-template <typename K>
-int persistent_blocks(K kernel, int threads, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
-  return sms * (per_sm > 0 ? per_sm : 1);
-}
 
 }  // namespace tt

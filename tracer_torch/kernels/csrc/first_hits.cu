@@ -1,17 +1,59 @@
 // First-hit kernel for Hopper: closest hit over all spheres, quads and the
-// meshes' BVH hits, then the winner's hit detail, one thread per ray.
+// meshes' BVH hits, then the winner's hit detail, for the live lanes of a
+// ray batch.
 //
 // Replaces the TPU kernel tracer/kernels/intersect.py::first_hits (Pallas;
 // body _kernel at intersect.py:122-379). The plain PyTorch version is
 // tracer_torch/kernels/intersect.py::first_hits_plain; both follow the
-// TPU kernel's expressions in the same order, and this file is built with
-// --fmad=false, so the card reproduces the plain version bit for bit.
+// TPU kernel's expressions, and this file is built with --fmad=false, so
+// the card reproduces the plain version bit for bit on live lanes.
 //
-// Bound: memory and launch latency. Per ray it reads 32 B (+ 8 B per mesh)
-// and writes 84 B (408,000 rays: about 47 MB per launch); the candidate
-// loop is ~30 flops per primitive against tables that sit in shared
-// memory. Everything per ray stays in registers; the winner's table row is
-// read once after the loop.
+// Bound. At bounce 0 of the flagship (408,000 live lanes) a lane reads 29 B
+// and writes 52 B, ~33 MB or 10 us at the card's memory rate; but the
+// candidate loop over 2 spheres and 11 quads (an IEEE division per quad, a
+// square root and a division per sphere, ~90 instructions a quad) makes the
+// kernel issue-bound on a dense bounce: ~30 us at every bounce of the flat
+// box on an H100 for the first port. The SIMD form carried over from the
+// TPU kernel paid for every lane the same: a dead lane wrote all 21
+// outputs, a live lane ran every division and square root and the detail
+// of both a sphere and a quad winner, and with 15% of the lanes live and
+// scattered, nearly every warp ran the whole chain. The design:
+// - persistent blocks (lanes.cuh) load the tables once into dynamic shared
+//   memory and walk tiles of 256 lanes; each tile lists its live lanes in
+//   shared memory, so a warp runs 32 live lanes (tiles of 1,024 lanes
+//   filled more warps on sparse bounces, but on an H100 they cost the
+//   flat box's dense protocol step ~4%: fewer lanes in flight);
+// - a dead lane costs its live flag and the integer fields a consumer
+//   indexes with (j = tid = -1, mid = row = sub [= idx_t = idx_n] = 0); its
+//   float fields are not written (no consumer reads them: B2 returns on an
+//   inactive lane, B6 is masked by active & j >= 0, the record and B3 read
+//   only j, tid and the texel indices of a dead lane);
+// - exact rejections before the divisions and square roots, by IEEE sign
+//   rules: a sphere is out when its valid flag is off, b >= 0 (then
+//   -b - sqrt(delta) <= 0, so t <= 0 < eps), delta < 0, or -b - sqrt(delta)
+//   <= 0; a quad when it is not valid, faces away and is not glass,
+//   dotRN == 0, or (D - o.n) and dotRN differ in sign or the numerator is
+//   zero (then t <= 0 < eps); a quad's t >= best fails before its
+//   in-bounds tests. They pay where a warp's lanes agree: a warp whose rays
+//   share a direction octant (camera rays) takes the loop with them (on an
+//   H100, the flat box's bounce 0: ~30 -> ~24 us), any other the loop
+//   without, since on incoherent bounces the early exits diverged and
+//   cost more than they saved (warp votes cost more still). The full test
+//   decides every lane either way, on the same values as the SIMD form,
+//   so the winner is the same. They hold only for eps > 0 (a t of -0
+//   passes t >= eps at eps = 0), so a call with eps <= 0 takes the loop
+//   without them;
+// - only the winner's detail, by a branch: a quad's, a mesh's, or a
+//   sphere's (also for no winner, from a zero row, as the SIMD form's
+//   zeroed cache gives); a non-quad winner gets u = v = 0, as there;
+// - a slim record: the tangent frame and the pair-atlas masks (ptex, pnm)
+//   are per-quad constants that B2 and B3 read from the quad table by j,
+//   so the kernel writes p, n, u, v and the integer fields only: 52 B a
+//   live lane (with tex_out = 2, 60 B), not 84;
+// - the tables sit in shared memory with rows padded to whole float4s (a
+//   quad's candidate test makes seven 16-byte loads, not 19 of 4); tables
+//   beyond the block's 227 KB are read through L2 (__ldg) by the kernel's
+//   second instance.
 //
 // Meshes (after the spheres and quads, in mesh order): the BVH walk's
 // closest raw hit t_mesh[m] is a candidate when >= eps (Scene.h:224), and
@@ -30,7 +72,7 @@
 // Outputs: out_i [5, n] = j, tid, mid, row, sub, and with tex_out=2
 //            [7, n] = ... idx_t, idx_n (true atlas indices, the record
 //            forward's texel-cotangent fold; 0 unless a quad wins);
-//          out_f [16, n] = p(3), n(3), u, v, tan(3), bitan(3), ptex, pnm.
+//          out_f [8, n] = p(3), n(3), u, v (live lanes only).
 // Mesh inputs: t_mesh [Nm, n] f32, tri_mesh [Nm, n] i32, mesh_mid [Nm] f32
 // (the meshes' material ids), pack [T, 24] (intersect.py::mesh_tables).
 #include <cuda_runtime.h>
@@ -38,6 +80,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "lanes.cuh"
 #include "mesh.cuh"
 
 // Mirror of _Args in tracer_torch/kernels/intersect.py (same order).
@@ -52,14 +95,51 @@ struct FirstHitsArgs {
   float* out_f;
   int n, S, S_real, Q, Q_real, n_meshes, T, tex_out, p_tex, p_nm;
   float eps;
+  // Room for the inputs not ported yet (ROADMAP Queue B, "Kernel inputs
+  // not ported yet"): the sphere-UV texel index and the exact-atlas
+  // variant. The launcher refuses either flag set.
+  int sphere_uv, exact_atlas;
+  // written by the launcher: persistent blocks, tables in shared memory
+  int blocks, shared_tables;
 };
 
 namespace {
 
+constexpr int ROUNDS = 1;  // tiles of 256 lanes (lanes.cuh)
+constexpr int TILE = ROUNDS * tt::LANE_THREADS;
 constexpr int SPH_COLS = 9;
 constexpr int QUAD_COLS = 47;
+constexpr int SPH_PAD = 12;   // a sphere row in shared memory: 3 float4s
+constexpr int QUAD_PAD = 48;  // a quad row in shared memory: 12 float4s
 constexpr float INF = 3.0e38f;
-constexpr int THREADS = 256;
+
+// A table row: in shared memory (padded to whole float4s, read four
+// columns to a load), or in the global table through the read-only cache.
+template <bool kShared>
+struct Row {
+  const float* p;
+
+  __device__ __forceinline__ float f(int c) const {
+    if (kShared) return p[c];
+    return __ldg(p + c);
+  }
+  // columns c .. c+3 (c a multiple of 4 and c + 3 within the row)
+  __device__ __forceinline__ float4 q(int c) const {
+    if (kShared) return *reinterpret_cast<const float4*>(p + c);
+    return make_float4(__ldg(p + c), __ldg(p + c + 1), __ldg(p + c + 2),
+                       __ldg(p + c + 3));
+  }
+};
+
+template <bool kShared>
+__device__ __forceinline__ Row<kShared> sph_row(const float* sph, int s) {
+  return Row<kShared>{sph + s * (kShared ? SPH_PAD : SPH_COLS)};
+}
+
+template <bool kShared>
+__device__ __forceinline__ Row<kShared> quad_row(const float* quad, int q) {
+  return Row<kShared>{quad + q * (kShared ? QUAD_PAD : QUAD_COLS)};
+}
 
 // tracer/kernels/intersect.py::_staircase: image-relative nearest texel
 __device__ __forceinline__ void staircase(float u, float v, float sx, float sy,
@@ -76,83 +156,129 @@ __device__ __forceinline__ void staircase(float u, float v, float sx, float sy,
   *y = min(max(yi, 0), max(hi - 1, 0));
 }
 
-__global__ void __launch_bounds__(THREADS)
-first_hits_kernel(FirstHitsArgs a) {
-  extern __shared__ float smem[];
-  float* ssph = smem;
-  float* squad = smem + a.S_real * SPH_COLS;
-  for (int k = threadIdx.x; k < a.S_real * SPH_COLS; k += blockDim.x)
-    ssph[k] = a.sph[k];
-  for (int k = threadIdx.x; k < a.Q_real * QUAD_COLS; k += blockDim.x)
-    squad[k] = a.quad[k];
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+// The integer fields of a lane that is not live.
+__device__ __forceinline__ void dead_lane(const FirstHitsArgs& a, int i) {
   const int n = a.n;
   int* oi = a.out_i + i;
-  float* of = a.out_f + i;
-
-  if (!a.live[i]) {
-    oi[0] = -1;
-    oi[n] = -1;
-    oi[2 * n] = 0;
-    oi[3 * n] = 0;
-    oi[4 * n] = 0;
-    if (a.tex_out >= 2) {
-      oi[5 * n] = 0;
-      oi[6 * n] = 0;
-    }
-    for (int k = 0; k < 16; ++k) of[k * n] = 0.0f;
-    of[5 * n] = 1.0f;  // n = (0, 0, 1)
-    return;
+  oi[0] = -1;
+  oi[n] = -1;
+  oi[2 * n] = 0;
+  oi[3 * n] = 0;
+  oi[4 * n] = 0;
+  if (a.tex_out >= 2) {
+    oi[5 * n] = 0;
+    oi[6 * n] = 0;
   }
+}
 
-  const float ox = a.ox[i], oy = a.oy[i], oz = a.oz[i];
-  const float dx = a.dx[i], dy = a.dy[i], dz = a.dz[i];
-  const float tm = a.tm[i];
+// A live lane's ray.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tm, a2;
+};
+
+__device__ __forceinline__ Ray load_ray(const FirstHitsArgs& a, int i) {
+  Ray r;
+  r.ox = a.ox[i]; r.oy = a.oy[i]; r.oz = a.oz[i];
+  r.dx = a.dx[i]; r.dy = a.dy[i]; r.dz = a.dz[i];
+  r.tm = a.tm[i];
+  r.a2 = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  return r;
+}
+
+// The sphere and quad candidates of a live lane's ray: best, its closest t,
+// and j, the winner (-1: none). With kReject, exact rejections skip a
+// candidate's division and square root, where they are worth their
+// divergence: for a warp whose rays share a direction octant (camera rays),
+// which agree on the facing of the axis-aligned walls and mostly on the
+// rest. The full test decides every candidate either way.
+template <bool kShared, bool kReject>
+__device__ __forceinline__ void candidates(const FirstHitsArgs& a,
+                                           const float* sph,
+                                           const float* quad, const Ray& y,
+                                           float& best, int& j) {
   const float eps = a.eps;
-  const float a2 = dx * dx + dy * dy + dz * dz;
-
-  float best = INF;
-  int j = -1;
+  best = INF;
+  j = -1;
   for (int s = 0; s < a.S_real; ++s) {
-    const float* r = ssph + s * SPH_COLS;
-    float ocx = ox - (r[0] + tm * r[4]);
-    float ocy = oy - (r[1] + tm * r[5]);
-    float ocz = oz - (r[2] + tm * r[6]);
-    float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
-    float cc = ocx * ocx + ocy * ocy + ocz * ocz - r[3] * r[3];
-    float delta = b * b - 4.0f * a2 * cc;
-    float t = (-b - sqrtf(tt::maxf(delta, 0.0f))) / (2.0f * a2);
-    bool ok = (delta >= 0.0f) && (t >= eps) && (r[7] > 0.5f);
+    const Row<kShared> r = sph_row<kShared>(sph, s);
+    const float4 c0 = r.q(0), c4 = r.q(4);  // c, r; mb, valid
+    if (kReject && !(c4.w > 0.5f)) continue;
+    const float ocx = y.ox - (c0.x + y.tm * c4.x);
+    const float ocy = y.oy - (c0.y + y.tm * c4.y);
+    const float ocz = y.oz - (c0.z + y.tm * c4.z);
+    const float b = 2.0f * (y.dx * ocx + y.dy * ocy + y.dz * ocz);
+    if (kReject && !(b < 0.0f)) continue;  // -b - sqrt(delta) <= 0 (or NaN)
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - c0.w * c0.w;
+    const float delta = b * b - 4.0f * y.a2 * cc;
+    if (kReject && !(delta >= 0.0f)) continue;
+    const float num = -b - sqrtf(tt::maxf(delta, 0.0f));
+    if (kReject && !(num > 0.0f)) continue;  // t <= 0 < eps
+    const float t = num / (2.0f * y.a2);
+    const bool ok = (delta >= 0.0f) && (t >= eps) && (c4.w > 0.5f);
     if (ok && t < best) {
       best = t;
       j = s;
     }
   }
   for (int q = 0; q < a.Q_real; ++q) {
-    const float* r = squad + q * QUAD_COLS;
-    float dotRN = dx * r[9] + dy * r[10] + dz * r[11];
-    float o_n = ox * r[9] + oy * r[10] + oz * r[11];
-    float D = r[15] + tm * r[16];
-    float t = (D - o_n) / (dotRN == 0.0f ? 1e-30f : dotRN);
-    float o_er = ox * r[3] + oy * r[4] + oz * r[5];
-    float d_er = dx * r[3] + dy * r[4] + dz * r[5];
-    float s1 = o_er + t * d_er - (r[17] + tm * r[18]);
-    float o_eu = ox * r[6] + oy * r[7] + oz * r[8];
-    float d_eu = dx * r[6] + dy * r[7] + dz * r[8];
-    float s2 = o_eu + t * d_eu - (r[19] + tm * r[20]);
-    bool front = dotRN < 0.0f;
-    bool two_sided = r[23] > 0.5f;
+    const Row<kShared> r = quad_row<kShared>(quad, q);
+    // cols 8-11: eu.z, n; 20-23: mb.eu, er.er, eu.eu, glass; 24: valid
+    const float4 c8 = r.q(8), c20 = r.q(20);
+    const float valid = r.f(24);
+    const float dotRN = y.dx * c8.y + y.dy * c8.z + y.dz * c8.w;
+    const bool front = dotRN < 0.0f;
+    const bool two_sided = c20.w > 0.5f;
+    // back faces hit only glass (two-sided); dotRN == 0 never hits
+    if (kReject &&
+        (!(valid > 0.5f) || !(front || two_sided) || dotRN == 0.0f))
+      continue;
+    const float4 c12 = r.q(12), c16 = r.q(16);  // mb, v0.n; mb.n, v0.er, ..
+    const float o_n = y.ox * c8.y + y.oy * c8.z + y.oz * c8.w;
+    const float num = (c12.w + y.tm * c16.x) - o_n;
+    // t = num / dotRN >= eps > 0 needs num and dotRN of one sign
+    if (kReject && !(front ? num < 0.0f : num > 0.0f)) continue;
+    const float t = num / (dotRN == 0.0f ? 1e-30f : dotRN);
+    if (kReject && !(t >= eps && t < best)) continue;
+    const float4 c0 = r.q(0), c4 = r.q(4);  // v0, er.x; er.yz, eu.xy
+    const float o_er = y.ox * c0.w + y.oy * c4.x + y.oz * c4.y;
+    const float d_er = y.dx * c0.w + y.dy * c4.x + y.dz * c4.y;
+    const float s1 = o_er + t * d_er - (c16.y + y.tm * c16.z);
+    const float o_eu = y.ox * c4.z + y.oy * c4.w + y.oz * c8.x;
+    const float d_eu = y.dx * c4.z + y.dy * c4.w + y.dz * c8.x;
+    const float s2 = o_eu + t * d_eu - (c16.w + y.tm * c20.x);
     bool ok = (dotRN != 0.0f) && (front || two_sided) && (t >= eps);
-    ok = ok && (s1 >= 0.0f) && (s1 <= r[21]) && (s2 >= 0.0f) &&
-         (s2 <= r[22]) && (r[24] > 0.5f);
+    ok = ok && (s1 >= 0.0f) && (s1 <= c20.y) && (s2 >= 0.0f) &&
+         (s2 <= c20.z) && (valid > 0.5f);
     if (ok && t < best) {
       best = t;
       j = a.S + q;
     }
   }
+}
+
+// One live lane: the candidate loops (with the rejections where the
+// warp's rays share a direction octant), the mesh candidates, the winner's
+// detail and the lane's outputs.
+template <bool kShared>
+__device__ __forceinline__ void hit_lane(const FirstHitsArgs& a,
+                                         const float* sph, const float* quad,
+                                         int i) {
+  const int n = a.n;
+  const Ray ry = load_ray(a, i);
+  const float ox = ry.ox, oy = ry.oy, oz = ry.oz;
+  const float dx = ry.dx, dy = ry.dy, dz = ry.dz;
+  const float tm = ry.tm, a2 = ry.a2;
+  const float eps = a.eps;
+  const unsigned warp = __activemask();
+  const int oct = (dx < 0.0f) | (dy < 0.0f) << 1 | (dz < 0.0f) << 2;
+  const bool coherent =
+      __all_sync(warp, oct == __shfl_sync(warp, oct, __ffs(warp) - 1));
+  float best;
+  int j;
+  if (coherent && eps > 0.0f)  // the rejections assume t <= 0 < eps
+    candidates<kShared, true>(a, sph, quad, ry, best, j);
+  else
+    candidates<kShared, false>(a, sph, quad, ry, best, j);
   int tid = -1;
   for (int m = 0; m < a.n_meshes; ++m) {
     const float traw = a.t_mesh[(size_t)m * n + i];
@@ -164,112 +290,116 @@ first_hits_kernel(FirstHitsArgs a) {
     }
   }
 
-  // ---- the winner's row, laid out as the TPU kernel's cache: a sphere
-  // winner fills c, r, mb, midf and leaves every quad field at zero ------
-  const bool is_s = j >= 0 && j < a.S;
-  const bool is_q = j >= a.S && j < a.S + a.Q;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f, c4 = 0.f, c5 = 0.f, c6 = 0.f;
-  float ex = 0.f, ey = 0.f, ez = 0.f, ux = 0.f, uy = 0.f, uz = 0.f;
-  float tnx = 0.f, tny = 0.f, tnz = 0.f, btx = 0.f, bty = 0.f, btz = 0.f;
-  float midf = 0.f;
-  const float* qr = nullptr;
-  if (is_s) {
-    const float* r = ssph + j * SPH_COLS;
-    c0 = r[0]; c1 = r[1]; c2 = r[2]; c3 = r[3];
-    c4 = r[4]; c5 = r[5]; c6 = r[6];
-    midf = r[8];
-  } else if (is_q) {
-    qr = squad + (size_t)(j - a.S) * QUAD_COLS;
-    c0 = qr[0]; c1 = qr[1]; c2 = qr[2];
-    c4 = qr[12]; c5 = qr[13]; c6 = qr[14];
-    ex = qr[3]; ey = qr[4]; ez = qr[5];
-    ux = qr[6]; uy = qr[7]; uz = qr[8];
-    tnx = qr[26]; tny = qr[27]; tnz = qr[28];
-    btx = qr[29]; bty = qr[30]; btz = qr[31];
-    midf = qr[25];
-  }
-
-  // sphere detail (primitives.sphere_hit_detail_planar)
-  float tcx = c0 + tm * c4;
-  float tcy = c1 + tm * c5;
-  float tcz = c2 + tm * c6;
-  float ocx = ox - tcx, ocy = oy - tcy, ocz = oz - tcz;
-  float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
-  float cc = ocx * ocx + ocy * ocy + ocz * ocz - c3 * c3;
-  float delta = b * b - 4.0f * a2 * cc;
-  float sq = sqrtf(tt::maxf(delta, 1e-12f));
-  float ts = (-b - sq) / (2.0f * a2);
-  float psx = ox + ts * dx, psy = oy + ts * dy, psz = oz + ts * dz;
-  float nsx0 = psx - tcx, nsy0 = psy - tcy, nsz0 = psz - tcz;
-  float inv = 1.0f / tt::maxf(sqrtf(nsx0 * nsx0 + nsy0 * nsy0 + nsz0 * nsz0),
-                              1e-20f);
-  float nsx = nsx0 * inv, nsy = nsy0 * inv, nsz = nsz0 * inv;
-
-  // quad detail (primitives.quad_hit_detail_planar): normal from er x eu
-  float cxq = ey * uz - ez * uy;
-  float cyq = ez * ux - ex * uz;
-  float czq = ex * uy - ey * ux;
-  float invq = 1.0f / tt::maxf(sqrtf(cxq * cxq + cyq * cyq + czq * czq),
-                               1e-20f);
-  float nqx = cxq * invq, nqy = cyq * invq, nqz = czq * invq;
-  float dotRN = dx * nqx + dy * nqy + dz * nqz;
-  float safe = fabsf(dotRN) < 1e-9f ? (dotRN < 0.0f ? -1e-9f : 1e-9f) : dotRN;
-  float tq = ((tcx * nqx + tcy * nqy + tcz * nqz) -
-              (ox * nqx + oy * nqy + oz * nqz)) / safe;
-  float pqx = ox + tq * dx, pqy = oy + tq * dy, pqz = oz + tq * dz;
-  float qx = pqx - tcx, qy = pqy - tcy, qz = pqz - tcz;
-  float uq = (qx * ex + qy * ey + qz * ez) /
-             tt::maxf(ex * ex + ey * ey + ez * ez, 1e-30f);
-  float vq = (qx * ux + qy * uy + qz * uz) /
-             tt::maxf(ux * ux + uy * uy + uz * uz, 1e-30f);
-
-  int row = 0, sub = 0;
-  float ptex = 0.0f, pnm = 0.0f;
-  if (a.tex_out && is_q) {
-    // pair-atlas index: rel = (ya+yb)*wc + xa+xb (integrator use_pair)
-    int xa, ya, xb, yb;
-    staircase(uq, vq, qr[32], qr[33], qr[34], qr[35], &xa, &ya);
-    staircase(uq, vq, qr[32], qr[33], qr[36], qr[37], &xb, &yb);
-    int wc = (int)qr[34] + max((int)qr[36] - 1, 0);
-    int rel = (ya + yb) * wc + xa + xb;
-    row = (int)qr[38] + (rel >> 4);
-    sub = rel & 15;
-    ptex = qr[39];
-    pnm = qr[40];
-  }
-  if (a.tex_out >= 2) {
-    // true atlas indices: the same staircase on the texture's and the
-    // normal map's own dims, clipped to the atlas
-    int idx_t = 0, idx_n = 0;
-    if (is_q) {
-      int xt, yt, xn, yn;
-      staircase(uq, vq, qr[32], qr[33], qr[42], qr[43], &xt, &yt);
-      idx_t = tt::clampi((int)qr[41] + yt * (int)qr[42] + xt, 0,
-                         a.p_tex - 1);
-      staircase(uq, vq, qr[32], qr[33], qr[45], qr[46], &xn, &yn);
-      idx_n = tt::clampi((int)qr[44] + yn * (int)qr[45] + xn, 0,
-                         a.p_nm - 1);
+  // ---- the winner's detail only ----------------------------------------
+  float px, py, pz, nx, ny, nz;
+  float uq = 0.0f, vq = 0.0f, midf = 0.0f;
+  int row = 0, sub = 0, idx_t = 0, idx_n = 0;
+  if (j >= a.S && j < a.S + a.Q) {
+    // quad detail (primitives.quad_hit_detail_planar): normal from er x eu
+    const Row<kShared> qr = quad_row<kShared>(quad, j - a.S);
+    const float tcx = qr.f(0) + tm * qr.f(12);
+    const float tcy = qr.f(1) + tm * qr.f(13);
+    const float tcz = qr.f(2) + tm * qr.f(14);
+    const float ex = qr.f(3), ey = qr.f(4),
+                ez = qr.f(5);
+    const float ux = qr.f(6), uy = qr.f(7),
+                uz = qr.f(8);
+    midf = qr.f(25);
+    const float cxq = ey * uz - ez * uy;
+    const float cyq = ez * ux - ex * uz;
+    const float czq = ex * uy - ey * ux;
+    const float invq =
+        1.0f / tt::maxf(sqrtf(cxq * cxq + cyq * cyq + czq * czq), 1e-20f);
+    nx = cxq * invq;
+    ny = cyq * invq;
+    nz = czq * invq;
+    const float dotRN = dx * nx + dy * ny + dz * nz;
+    const float safe =
+        fabsf(dotRN) < 1e-9f ? (dotRN < 0.0f ? -1e-9f : 1e-9f) : dotRN;
+    const float tq = ((tcx * nx + tcy * ny + tcz * nz) -
+                      (ox * nx + oy * ny + oz * nz)) / safe;
+    px = ox + tq * dx;
+    py = oy + tq * dy;
+    pz = oz + tq * dz;
+    const float qx = px - tcx, qy = py - tcy, qz = pz - tcz;
+    uq = (qx * ex + qy * ey + qz * ez) /
+         tt::maxf(ex * ex + ey * ey + ez * ez, 1e-30f);
+    vq = (qx * ux + qy * uy + qz * uz) /
+         tt::maxf(ux * ux + uy * uy + uz * uz, 1e-30f);
+    if (a.tex_out) {
+      const float sx = qr.f(32), sy = qr.f(33);
+      const float wa = qr.f(34), wb = qr.f(36);
+      // pair-atlas index: rel = (ya+yb)*wc + xa+xb (integrator use_pair)
+      int xa, ya, xb, yb;
+      staircase(uq, vq, sx, sy, wa, qr.f(35), &xa, &ya);
+      staircase(uq, vq, sx, sy, wb, qr.f(37), &xb, &yb);
+      const int wc = (int)wa + max((int)wb - 1, 0);
+      const int rel = (ya + yb) * wc + xa + xb;
+      row = (int)qr.f(38) + (rel >> 4);
+      sub = rel & 15;
+      if (a.tex_out >= 2) {
+        // true atlas indices: the same staircase on the texture's and the
+        // normal map's own dims, clipped to the atlas
+        int xt, yt, xn, yn;
+        const float tw = qr.f(42), nw = qr.f(45);
+        staircase(uq, vq, sx, sy, tw, qr.f(43), &xt, &yt);
+        idx_t = tt::clampi((int)qr.f(41) + yt * (int)tw + xt, 0,
+                           a.p_tex - 1);
+        staircase(uq, vq, sx, sy, nw, qr.f(46), &xn, &yn);
+        idx_n = tt::clampi((int)qr.f(44) + yn * (int)nw + xn, 0,
+                           a.p_nm - 1);
+      }
     }
-    oi[5 * n] = idx_t;
-    oi[6 * n] = idx_n;
-  }
-
-  float px = is_q ? pqx : psx, py = is_q ? pqy : psy, pz = is_q ? pqz : psz;
-  float nx = is_q ? nqx : nsx, ny = is_q ? nqy : nsy, nz = is_q ? nqz : nsz;
-  if (j >= a.S + a.Q) {  // a mesh winner: its triangle's hit detail
+  } else if (j >= a.S + a.Q) {  // a mesh winner: its triangle's hit detail
     midf = a.mesh_mid[j - a.S - a.Q];
     const tt::TriDetail td = tt::triangle_detail(
-        a.pack + (size_t)tt::clampi(tid, 0, a.T - 1) * tt::MESH_PACK_COLS,
-        ox, oy, oz, dx, dy, dz);
+        a.pack + (size_t)tt::clampi(tid, 0, a.T - 1) * tt::MESH_PACK_COLS, ox,
+        oy, oz, dx, dy, dz);
     px = td.px; py = td.py; pz = td.pz;
     nx = td.nx; ny = td.ny; nz = td.nz;
+  } else {
+    // sphere detail (primitives.sphere_hit_detail_planar); no winner reads
+    // a zero row, as the TPU kernel's zeroed cache does
+    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f, c4 = 0.f, c5 = 0.f,
+          c6 = 0.f;
+    if (j >= 0) {
+      const Row<kShared> r = sph_row<kShared>(sph, j);
+      c0 = r.f(0); c1 = r.f(1); c2 = r.f(2); c3 = r.f(3);
+      c4 = r.f(4); c5 = r.f(5); c6 = r.f(6);
+      midf = r.f(8);
+    }
+    const float tcx = c0 + tm * c4;
+    const float tcy = c1 + tm * c5;
+    const float tcz = c2 + tm * c6;
+    const float ocx = ox - tcx, ocy = oy - tcy, ocz = oz - tcz;
+    const float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
+    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - c3 * c3;
+    const float delta = b * b - 4.0f * a2 * cc;
+    const float sq = sqrtf(tt::maxf(delta, 1e-12f));
+    const float ts = (-b - sq) / (2.0f * a2);
+    px = ox + ts * dx;
+    py = oy + ts * dy;
+    pz = oz + ts * dz;
+    const float nsx0 = px - tcx, nsy0 = py - tcy, nsz0 = pz - tcz;
+    const float inv =
+        1.0f / tt::maxf(sqrtf(nsx0 * nsx0 + nsy0 * nsy0 + nsz0 * nsz0),
+                        1e-20f);
+    nx = nsx0 * inv;
+    ny = nsy0 * inv;
+    nz = nsz0 * inv;
   }
 
+  int* oi = a.out_i + i;
+  float* of = a.out_f + i;
   oi[0] = best >= INF * 0.5f ? -1 : j;
   oi[n] = tid;
   oi[2 * n] = (int)midf;
   oi[3 * n] = row;
   oi[4 * n] = sub;
+  if (a.tex_out >= 2) {
+    oi[5 * n] = idx_t;
+    oi[6 * n] = idx_n;
+  }
   of[0] = px;
   of[n] = py;
   of[2 * n] = pz;
@@ -278,23 +408,63 @@ first_hits_kernel(FirstHitsArgs a) {
   of[5 * n] = nz;
   of[6 * n] = uq;
   of[7 * n] = vq;
-  of[8 * n] = tnx;
-  of[9 * n] = tny;
-  of[10 * n] = tnz;
-  of[11 * n] = btx;
-  of[12 * n] = bty;
-  of[13 * n] = btz;
-  of[14 * n] = ptex;
-  of[15 * n] = pnm;
 }
+
+template <bool kShared>
+__global__ void __launch_bounds__(tt::LANE_THREADS)
+first_hits_kernel(FirstHitsArgs a) {
+  extern __shared__ float4 smem4[];  // the tables (kShared)
+  __shared__ int list[TILE];
+  __shared__ int counts[tt::TILE_COUNTS];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float* sph = a.sph;
+  const float* quad = a.quad;
+  if (kShared) {  // visible after list_tile's first barrier
+    float* ssph = smem;
+    float* squad = smem + a.S_real * SPH_PAD;
+    for (int k = threadIdx.x; k < a.S_real * SPH_PAD; k += blockDim.x) {
+      const int r = k / SPH_PAD, c = k - r * SPH_PAD;
+      ssph[k] = c < SPH_COLS ? a.sph[r * SPH_COLS + c] : 0.0f;
+    }
+    for (int k = threadIdx.x; k < a.Q_real * QUAD_PAD; k += blockDim.x) {
+      const int r = k / QUAD_PAD, c = k - r * QUAD_PAD;
+      squad[k] = c < QUAD_COLS ? a.quad[r * QUAD_COLS + c] : 0.0f;
+    }
+    sph = ssph;
+    quad = squad;
+  }
+  const int tiles = (a.n + TILE - 1) / TILE;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * TILE;
+    const int cnt = tt::list_tile<ROUNDS>(
+        t0, min(TILE, a.n - t0), list, counts,
+        [&](int i) { return a.live[i] != 0; },
+        [&](int i) { dead_lane(a, i); });
+    for (int k = threadIdx.x; k < cnt; k += blockDim.x)
+      hit_lane<kShared>(a, sph, quad, list[k]);
+    __syncthreads();  // the next tile rewrites list and counts
+  }
+}
+
+tt::SharedFit g_fit;
 
 }  // namespace
 
-extern "C" int tt_first_hits(const FirstHitsArgs* args, void* stream) {
-  const FirstHitsArgs a = *args;
-  const int blocks = (a.n + THREADS - 1) / THREADS;
-  const size_t smem =
-      sizeof(float) * (size_t)(a.S_real * SPH_COLS + a.Q_real * QUAD_COLS);
-  first_hits_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+extern "C" int tt_first_hits(FirstHitsArgs* args, void* stream) {
+  FirstHitsArgs& a = *args;
+  if (a.sphere_uv || a.exact_atlas) return (int)cudaErrorNotSupported;
+  const size_t tables =
+      sizeof(float) * (size_t)(a.S_real * SPH_PAD + a.Q_real * QUAD_PAD);
+  const tt::SharedFit& fit =
+      tt::fit_shared(g_fit, tables, tt::LANE_THREADS,
+                     first_hits_kernel<true>, first_hits_kernel<false>);
+  a.blocks = tt::lane_blocks(fit.blocks, a.n, TILE);
+  a.shared_tables = fit.fits ? 1 : 0;
+  if (fit.fits)
+    first_hits_kernel<true><<<a.blocks, tt::LANE_THREADS, tables,
+                              (cudaStream_t)stream>>>(a);
+  else
+    first_hits_kernel<false><<<a.blocks, tt::LANE_THREADS, 0,
+                               (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

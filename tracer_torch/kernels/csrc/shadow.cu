@@ -24,7 +24,8 @@
 // runs both paths each turn (measured: the walks cost ~9x the rest). The
 // design, two kernels per call:
 // - shadow_setup, one thread per sample: its ray, the sphere and quad
-//   tables, and the meshes' root boxes (in shared memory, no load). Most
+//   tables, and the meshes' root boxes (nodes that every sample reads, so
+//   they stay in L1: a copy in shared memory was no faster on an H100). Most
 //   samples end here and are counted. A sample that enters a root box
 //   becomes a task (one atomic per warp appends a warp's tasks).
 // - shadow_walk, one wave of persistent blocks whose lanes take the next
@@ -46,7 +47,14 @@
 //   writes 1 - blocked_count * f32(1/K), the plain version's sum times
 //   f32(1/K), bit for bit, in any order. No float atomics.
 //
-// Tables (tracer_torch/kernels/shadow.py::shadow_tables), in shared memory:
+// The tables sit in each block's dynamic shared memory, or, when they
+// exceed a block's 227 KB, are read through L2 by the kernels' second
+// instances; the meshes' node ranges come as a device array [n_meshes]
+// (root, end), and their root nodes are read through the read-only cache.
+// So any table size and any number of meshes run on the card, as on the
+// TPU.
+//
+// Tables (tracer_torch/kernels/shadow.py::shadow_tables):
 // light [L, 4] = pos(3), radius/2; sph [S, 9] = c(3), r^2, mb(3), valid,
 // transparency; quad [Q, 20] = n(3), er(3), eu(3), v0.n, mb.n, v0.er,
 // mb.er, v0.eu, mb.eu, er.er, eu.eu, glass, valid, transparency; mesh [Nm]
@@ -58,8 +66,6 @@
 #include "bvh.cuh"
 #include "common.cuh"
 #include "pcg.cuh"
-
-constexpr int MAX_MESHES = 16;
 
 // Mirror of _Args in tracer_torch/kernels/shadow.py (same order).
 struct ShadowArgs {
@@ -74,9 +80,10 @@ struct ShadowArgs {
   unsigned* counts;  // [L * n], zeroed: done + 65536 * blocked
   int2* tasks;       // [L * n * K]: (l * n + i, k) of the samples to walk
   int* work;         // [2]: the task count and the walk's work counter
+  const int2* ranges;  // [n_meshes]: mesh m's node range [root, end)
   int n, n_meshes, leaf_width;
-  int blocks;  // written by the launcher: the walk's persistent blocks
-  int root[MAX_MESHES], end[MAX_MESHES];
+  // written by the launcher: the walk's persistent blocks, tables shared
+  int blocks, shared_tables;
   int L, S, S_real, Q, Q_real, K, ref;
   float eps;         // the scene's candidate cut (t >= eps)
   float offset_eps;  // the shadow ray's origin offset (cfg.epsilon)
@@ -88,14 +95,27 @@ constexpr int THREADS = 128;
 constexpr uint32_t SHADOW_LIGHT_POS = 4;
 constexpr uint32_t SHADOW_BERNOULLI = 5;
 
-// The tables in shared memory.
+// The tables: in dynamic shared memory (kShared), or the global ones read
+// through L2 when they exceed a block's 227 KB; and the meshes' roots.
+template <bool kShared>
 struct Tables {
   const float *light, *sph, *quad, *mesh;
-  const tt::Node* roots;
+  tt::Roots roots;
 };
 
-__device__ __forceinline__ Tables load_tables(const ShadowArgs& a,
-                                              float* smem, tt::Node* roots) {
+// Floats of the tables in shared memory.
+__host__ __device__ __forceinline__ int table_floats(const ShadowArgs& a) {
+  return a.L * 4 + a.S_real * 9 + a.Q_real * 20 + a.n_meshes;
+}
+
+template <bool kShared>
+__device__ __forceinline__ Tables<kShared> load_tables(const ShadowArgs& a,
+                                                       float* smem) {
+  const tt::Tree tr = {reinterpret_cast<const float4*>(a.nodes_f),
+                       reinterpret_cast<const int2*>(a.nodes_i),
+                       reinterpret_cast<const float4*>(a.leaf), a.leaf_width};
+  const tt::Roots roots{a.ranges, tr, nullptr, 0};  // all through L1
+  if (!kShared) return Tables<kShared>{a.light, a.sph, a.quad, a.mesh, roots};
   float* slight = smem;
   float* ssph = slight + a.L * 4;
   float* squad = ssph + a.S_real * 9;
@@ -104,15 +124,10 @@ __device__ __forceinline__ Tables load_tables(const ShadowArgs& a,
   for (int k = threadIdx.x; k < a.S_real * 9; k += blockDim.x) ssph[k] = a.sph[k];
   for (int k = threadIdx.x; k < a.Q_real * 20; k += blockDim.x)
     squad[k] = a.quad[k];
-  const tt::Tree tr = {reinterpret_cast<const float4*>(a.nodes_f),
-                       reinterpret_cast<const int2*>(a.nodes_i),
-                       reinterpret_cast<const float4*>(a.leaf), a.leaf_width};
-  for (int k = threadIdx.x; k < a.n_meshes; k += blockDim.x) {
+  for (int k = threadIdx.x; k < a.n_meshes; k += blockDim.x)
     smesh[k] = a.mesh[k];
-    if (a.root[k] < a.end[k]) roots[k] = tt::load_node(tr, a.root[k]);
-  }
   __syncthreads();
-  return Tables{slight, ssph, squad, smesh, roots};
+  return Tables<kShared>{slight, ssph, squad, smesh, roots};
 }
 
 // Sample k toward light l of hit point i (integrator._shadow_factor_jnp):
@@ -124,9 +139,10 @@ struct Sample {
   uint32_t bk;
 };
 
+template <bool kShared>
 __device__ __forceinline__ Sample make_sample(const ShadowArgs& a,
-                                              const Tables& tb, int i, int l,
-                                              int k) {
+                                              const Tables<kShared>& tb,
+                                              int i, int l, int k) {
   const float px = a.px[i], py = a.py[i], pz = a.pz[i];
   const uint32_t key = (uint32_t)a.key[i];
   const float* lt = tb.light + l * 4;
@@ -168,8 +184,9 @@ __device__ __forceinline__ Sample make_sample(const ShadowArgs& a,
 
 // The sphere and quad tables (the jnp candidate pass; Scene.h:236-243),
 // up to the first occluder that blocks the sample.
+template <bool kShared>
 __device__ __forceinline__ bool table_blocked(const ShadowArgs& a,
-                                              const Tables& tb,
+                                              const Tables<kShared>& tb,
                                               const Sample& s) {
   const float eps = a.eps, tl = s.tl, tm = s.tm;
   const float sox = s.r.ox, soy = s.r.oy, soz = s.r.oz;
@@ -214,15 +231,17 @@ __device__ __forceinline__ bool table_blocked(const ShadowArgs& a,
 // transparency (a mesh's draw is lane S + Q + m of the sample's key) and
 // whose root box the ray enters below t_light, and the node its walk goes
 // on at; n_meshes if none: no further mesh can block the sample.
+template <bool kShared>
 __device__ __forceinline__ int enter_mesh(const ShadowArgs& a,
-                                          const Tables& tb, const Sample& s,
-                                          int m, int& node) {
+                                          const Tables<kShared>& tb,
+                                          const Sample& s, int m, int& node) {
   for (; m < a.n_meshes; ++m) {
     if (!(tt::lane_uniform(s.bk, a.S + a.Q + m) > tb.mesh[m])) continue;
-    const int root = a.root[m], end = a.end[m];
-    node = tt::after_root(tb.roots[m], root, end,
-                          root < end && tt::slab(tb.roots[m], s.r, s.tl));
-    if (node < end) return m;
+    const int2 rg = tb.roots.span(m);
+    if (!(rg.x < rg.y)) continue;  // an empty mesh
+    const tt::Node root = tb.roots.node(m, rg);
+    node = tt::after_root(root, rg.x, rg.y, tt::slab(root, s.r, s.tl));
+    if (node < rg.y) return m;
   }
   return a.n_meshes;
 }
@@ -250,10 +269,11 @@ __device__ __forceinline__ void count(const ShadowArgs& a, bool fin,
   }
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(THREADS) shadow_setup(ShadowArgs a) {
-  extern __shared__ float smem[];
-  __shared__ tt::Node roots[MAX_MESHES];
-  const Tables tb = load_tables(a, smem, roots);
+  extern __shared__ float4 smem4[];  // the tables (kShared)
+  const Tables<kShared> tb =
+      load_tables<kShared>(a, reinterpret_cast<float*>(smem4));
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = t < (long long)a.L * a.n * a.K;
   const int cell = valid ? (int)(t / a.K) : 0;  // l * n + i
@@ -275,10 +295,11 @@ __global__ void __launch_bounds__(THREADS) shadow_setup(ShadowArgs a) {
   if (walk) a.tasks[at] = make_int2(cell, k);
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(THREADS) shadow_walk(ShadowArgs a) {
-  extern __shared__ float smem[];
-  __shared__ tt::Node roots[MAX_MESHES];
-  const Tables tb = load_tables(a, smem, roots);
+  extern __shared__ float4 smem4[];  // the tables (kShared)
+  const Tables<kShared> tb =
+      load_tables<kShared>(a, reinterpret_cast<float*>(smem4));
   const tt::Tree tr = {reinterpret_cast<const float4*>(a.nodes_f),
                        reinterpret_cast<const int2*>(a.nodes_i),
                        reinterpret_cast<const float4*>(a.leaf), a.leaf_width};
@@ -303,7 +324,7 @@ __global__ void __launch_bounds__(THREADS) shadow_walk(ShadowArgs a) {
       m = enter_mesh(a, tb, s, 0, node);
       busy = true;
       if (m < a.n_meshes) {
-        w.begin(tr, node, a.end[m]);
+        w.begin(tr, node, tb.roots.span(m).y);
         bt = s.tl;
       } else {
         busy = false;
@@ -317,7 +338,7 @@ __global__ void __launch_bounds__(THREADS) shadow_walk(ShadowArgs a) {
         int node = 0;
         m = blocked ? a.n_meshes : enter_mesh(a, tb, s, m + 1, node);
         if (m < a.n_meshes) {
-          w.begin(tr, node, a.end[m]);
+          w.begin(tr, node, tb.roots.span(m).y);
           bt = s.tl;
         } else {
           busy = false;
@@ -329,21 +350,30 @@ __global__ void __launch_bounds__(THREADS) shadow_walk(ShadowArgs a) {
   }
 }
 
+tt::SharedFit g_fit;
+
 }  // namespace
 
 extern "C" int tt_shadow(ShadowArgs* args, void* stream) {
   const ShadowArgs& a = *args;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem =
-      sizeof(float) * (size_t)(a.L * 4 + a.S_real * 9 + a.Q_real * 20 +
-                               a.n_meshes);
+  const size_t smem = sizeof(float) * (size_t)table_floats(a);
+  const tt::SharedFit& fit =
+      tt::fit_shared(g_fit, smem, THREADS, shadow_walk<true>,
+                     shadow_walk<false>, shadow_setup<true>);
+  args->shared_tables = fit.fits ? 1 : 0;
   const long long samples = (long long)a.L * a.n * a.K;
-  shadow_setup<<<(int)((samples + THREADS - 1) / THREADS), THREADS, smem,
-                 st>>>(a);
-  args->blocks = 0;
-  if (a.n_meshes > 0) {  // else every sample ended in the setup
-    args->blocks = tt::persistent_blocks(shadow_walk, THREADS, smem);
-    shadow_walk<<<args->blocks, THREADS, smem, st>>>(a);
+  const int grid = (int)((samples + THREADS - 1) / THREADS);
+  // with no mesh every sample ends in the setup
+  args->blocks = a.n_meshes > 0 ? fit.blocks : 0;
+  if (fit.fits) {
+    shadow_setup<true><<<grid, THREADS, smem, st>>>(a);
+    if (args->blocks > 0)
+      shadow_walk<true><<<args->blocks, THREADS, smem, st>>>(a);
+  } else {
+    shadow_setup<false><<<grid, THREADS, 0, st>>>(a);
+    if (args->blocks > 0)
+      shadow_walk<false><<<args->blocks, THREADS, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }

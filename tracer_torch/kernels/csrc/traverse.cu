@@ -17,9 +17,9 @@
 // held its warp through up to 16 dependent slot loads. The design, two
 // kernels per call:
 // - traverse_roots, one thread per (ray, mesh): the slab test of the
-//   mesh's root box (from shared memory, no load). A miss, most rays, is
-//   written at once; a hit is appended to a task list (one atomic per
-//   warp).
+//   mesh's root box (for the first 16 meshes from shared memory, no
+//   load). A miss, most rays, is written at once; a hit is appended to a
+//   task list (one atomic per warp).
 // - traverse_walk, one wave of persistent blocks whose lanes take the next
 //   task from a work counter as soon as their walk ends (tt::TaskQueue),
 //   so warps stay full until the list drains and the stacked tails become
@@ -27,13 +27,17 @@
 //   node or a leaf slot whose loads were issued a turn ahead (tt::Walk),
 //   so no lane holds its warp through a whole leaf.
 //
+// The meshes' node ranges come as a device array [n_meshes] (root, end):
+// any number of meshes, as the TPU kernel takes. Each block keeps the
+// first tt::ROOT_CACHE root nodes in shared memory and reads the others
+// through the read-only cache (on an H100, reading every root through it
+// made a call 3-8% slower on the stand-in flamingo scenes; PERF.md).
+//
 // Outputs: out_t [n_meshes, n] f32 (INF on a miss), out_tri [n_meshes, n]
 // i32 (-1 on a miss); lanes with live false get (INF, -1).
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"
-
-constexpr int MAX_MESHES = 16;
 
 // Mirror of _Args in tracer_torch/kernels/traverse.py (same order).
 struct TraverseArgs {
@@ -46,9 +50,9 @@ struct TraverseArgs {
   int* out_tri;
   int* tasks;  // [n_meshes * n] task list: m * n + i
   int* work;   // [2]: the task count and the walk's work counter, zeroed
+  const int2* ranges;  // [n_meshes]: mesh m's node range [root, end)
   int n, n_meshes, leaf_width;
   int blocks;  // written by the launcher: the walk's persistent blocks
-  int root[MAX_MESHES], end[MAX_MESHES];
 };
 
 namespace {
@@ -61,14 +65,6 @@ __device__ __forceinline__ tt::Tree tree(const TraverseArgs& a) {
                   reinterpret_cast<const float4*>(a.leaf), a.leaf_width};
 }
 
-__device__ __forceinline__ void load_roots(const TraverseArgs& a,
-                                           tt::Node* roots) {
-  const tt::Tree tr = tree(a);
-  for (int m = threadIdx.x; m < a.n_meshes; m += blockDim.x)
-    if (a.root[m] < a.end[m]) roots[m] = tt::load_node(tr, a.root[m]);
-  __syncthreads();
-}
-
 __device__ __forceinline__ tt::Ray load_ray(const TraverseArgs& a, int i) {
   tt::Ray r;
   r.ox = a.ox[i]; r.oy = a.oy[i]; r.oz = a.oz[i];
@@ -78,17 +74,27 @@ __device__ __forceinline__ tt::Ray load_ray(const TraverseArgs& a, int i) {
   return r;
 }
 
+__device__ __forceinline__ tt::Roots roots_of(const TraverseArgs& a,
+                                              tt::Node* smem) {
+  const tt::Roots rs = tt::cache_roots(tree(a), a.ranges, a.n_meshes, smem);
+  __syncthreads();
+  return rs;
+}
+
 __global__ void __launch_bounds__(THREADS) traverse_roots(TraverseArgs a) {
-  __shared__ tt::Node roots[MAX_MESHES];
-  load_roots(a, roots);
+  __shared__ tt::Node sroots[tt::ROOT_CACHE];
+  const tt::Roots roots = roots_of(a, sroots);
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = t < (long long)a.n * a.n_meshes;
   const int m = valid ? (int)(t / a.n) : 0;
   const int i = valid ? (int)(t - (long long)m * a.n) : 0;
   bool task = false;
   if (valid) {
-    if (a.live[i] && a.root[m] < a.end[m])
-      task = tt::slab(roots[m], load_ray(a, i), tt::INF);
+    if (a.live[i]) {
+      const int2 rg = roots.span(m);
+      if (rg.x < rg.y)
+        task = tt::slab(roots.node(m, rg), load_ray(a, i), tt::INF);
+    }
     if (!task) {
       a.out_t[t] = tt::INF;
       a.out_tri[t] = -1;
@@ -99,8 +105,8 @@ __global__ void __launch_bounds__(THREADS) traverse_roots(TraverseArgs a) {
 }
 
 __global__ void __launch_bounds__(THREADS) traverse_walk(TraverseArgs a) {
-  __shared__ tt::Node roots[MAX_MESHES];
-  load_roots(a, roots);
+  __shared__ tt::Node sroots[tt::ROOT_CACHE];
+  const tt::Roots roots = roots_of(a, sroots);
   const tt::Tree tr = tree(a);
   tt::TaskQueue q(a.work + 1, *(volatile int*)a.work);
   bool busy = false;
@@ -118,8 +124,8 @@ __global__ void __launch_bounds__(THREADS) traverse_walk(TraverseArgs a) {
       out = a.tasks[task];
       const int m = out / a.n;
       r = load_ray(a, out - m * a.n);
-      w.begin(tr, tt::after_root(roots[m], a.root[m], a.end[m], true),
-              a.end[m]);
+      const int2 rg = roots.span(m);
+      w.begin(tr, tt::after_root(roots.node(m, rg), rg.x, rg.y, true), rg.y);
       bt = tt::INF;
       btri = -1;
     }
@@ -138,10 +144,9 @@ __global__ void __launch_bounds__(THREADS) traverse_walk(TraverseArgs a) {
 extern "C" int tt_traverse(TraverseArgs* args, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long items = (long long)args->n * args->n_meshes;
-  traverse_roots<<<(int)((items + THREADS - 1) / THREADS), THREADS, 0,
-                   st>>>(*args);
-  const int blocks = tt::persistent_blocks(traverse_walk, THREADS, 0);
-  args->blocks = blocks;
-  traverse_walk<<<blocks, THREADS, 0, st>>>(*args);
+  const int grid = (int)((items + THREADS - 1) / THREADS);
+  traverse_roots<<<grid, THREADS, 0, st>>>(*args);
+  args->blocks = tt::persistent_blocks(traverse_walk, THREADS, 0);
+  traverse_walk<<<args->blocks, THREADS, 0, st>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -1,21 +1,26 @@
 """First-hit kernel: the sphere+quad candidate pass, the merge of the
 per-mesh BVH hits, the closest-hit argmin and the winner's hit detail in
-one pass over the rays.
+one pass over the live rays.
 
 Replaces the TPU kernel `tracer/kernels/intersect.py::first_hits` (Pallas,
 `pl.pallas_call` at intersect.py:433) with the CUDA kernel
-`csrc/first_hits.cu`, one thread per ray. Its plain PyTorch version,
-`first_hits_plain`, follows the same expressions in the same order and is
-what the wrapper runs for CPU tensors.
+`csrc/first_hits.cu`: persistent blocks that list each tile's live lanes
+in shared memory, reject candidates exactly before their divisions and
+square roots, and compute only the winner's detail. Its plain PyTorch
+version, `first_hits_plain`, follows the same expressions in the SIMD
+form of the TPU kernel and is what the wrapper runs for CPU tensors.
 
-What bounds it on an H100: per ray it reads about 32 B (o, d, time, live)
-plus 8 B per mesh and writes 84 B (21 planar outputs); the scene tables
-(Cornell: 8x9 + 16x47 floats) sit in shared memory, and the candidate loop
-is ~30 flops per primitive. So it is bound by memory traffic and launch
-latency, far below the card's compute bound. The design keeps every
-per-ray intermediate in registers, reads the winner's table row once after
-the loop instead of carrying a winner cache through it, and writes each
-output once.
+What bounds it on an H100: on a dense bounce the candidate loop's issue
+slots (per live lane ~90 instructions a quad, with its division; 29 B
+in, 52 B out), on a sparse one the dead lanes, which cost their live flag
+and integer fields only. The kernel writes a slim record
+(`SLIM_FIELDS`): the tangent frame and the atlas masks are per-quad
+constants, which the shade kernel and the backward read from the quad
+table by j. `first_hits` gathers them
+(`quad_fields`) for its full dict; the bounce loop asks for the slim one.
+The tables sit in dynamic shared memory, or are read through L2 by the
+kernel's second instance when they exceed a block's 227 KB
+(`TABLES` says which the last launch took).
 
 Semantics (mirrored from the TPU kernel):
 - selection is strict-< in (spheres, quads, meshes) order over the REAL
@@ -24,20 +29,24 @@ Semantics (mirrored from the TPU kernel):
   lies below eps drops out entirely (Scene.h:224);
 - `tid` is the winning mesh's triangle, -1 for other winners;
 - a sphere winner's quad fields read as zero, so its u = v = 0 and
-  tan = bitan = 0, exactly as the TPU kernel's zeroed cache leaves them;
+  tan = bitan = 0, exactly as the TPU kernel's zeroed cache leaves them
+  (the kernel writes u = v = +0; the SIMD form may give -0);
 - a mesh winner's p and n are its triangle hit detail
   (`primitives.triangle_hit_detail`, the JAX package's
   `integrator._mesh_detail_p`) from the mesh pack row of `tid`: the TPU
   kernel leaves them stale and the JAX integrator replaces them, but here
   the soft-shadow kernel reads the hit point before the shade kernel runs;
   u = v = 0 and its texel fields are 0;
-- `tex_out=1` adds the pair-atlas texel index (row, sub) and the per-lane
-  atlas-validity masks (ptex, pnm) for quad winners;
+- `tex_out=1` adds the pair-atlas texel index (row, sub) and the
+  atlas-validity masks (ptex, pnm) of quad winners;
 - `tex_out=2` (the record forward of the backward) also adds the true
   atlas indices (idx_t, idx_n) of the nearest texel in `tex_data` and
   `nm_data`, clipped to the atlas, for quad winners; other lanes get 0;
-- lanes with `live` false get the defaults: j = tid = -1, n = (0, 0, 1),
-  everything else 0.
+- lanes with `live` false: j = tid = -1, mid = row = sub (= idx_t =
+  idx_n) = 0, and tan = bitan = ptex = pnm = 0 in the full dict. Their
+  p, n, u and v are unspecified: the kernel does not write them (no
+  consumer reads them) and the plain version gives n = (0, 0, 1), the
+  rest 0.
 """
 
 from __future__ import annotations
@@ -52,11 +61,15 @@ from tracer_torch.kernels import common as kc
 GLASS = 1
 LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
 
+TABLES = None  # "shared" or "global": where the last launch's tables sat
+BLOCKS = 0     # persistent blocks of the last launch
+
 # output layout of the kernel: int32 [5, N] (tex_out=2: [7, N]) and
-# float32 [16, N]
+# float32 [8, N]
 I_FIELDS = ("j", "tid", "mid", "row", "sub", "idx_t", "idx_n")
-F_FIELDS = ("px", "py", "pz", "nx", "ny", "nz", "u", "v",
-            "tx", "ty", "tz", "bx", "by", "bz", "ptex", "pnm")
+F_FIELDS = ("px", "py", "pz", "nx", "ny", "nz", "u", "v")
+# the slim record's keys (with tex_out=2 also idx_t, idx_n)
+SLIM_FIELDS = ("j", "tid", "mid", "row", "sub", "p", "n", "u", "v")
 
 
 def intersect_tables(scene):
@@ -135,7 +148,7 @@ def mesh_detail(pack, o, d, tid):
 
 def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
                kernels="auto", tables=None, t_mesh=None, tri_mesh=None,
-               mesh=None):
+               mesh=None, slim=False):
     """Closest hit + winner detail for planar rays.
 
     o, d: planar (x, y, z) of [N] f32; time [N] f32; live [N] bool.
@@ -144,7 +157,11 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
     `mesh`, a precomputed `mesh_tables(scene)`.
     Returns dict(j [-1 = miss], tid, mid, row, sub (int32), p, n, tan,
     bitan (planar f32), u, v, ptex, pnm (f32)), plus idx_t, idx_n (int32)
-    when `tex_out=2`. `tables`: a precomputed `intersect_tables(scene)`."""
+    when `tex_out=2`. With `slim` only the kernel's own record
+    (`SLIM_FIELDS`, and idx_t, idx_n): tan, bitan, ptex and pnm are the
+    winning quad's table columns (`quad_fields`). What a lane that is not
+    live holds: see the module docstring. `tables`: a precomputed
+    `intersect_tables(scene)`."""
     if tex_out not in (0, 1, 2):
         raise ValueError(f"first_hits: tex_out must be 0, 1 or 2, got "
                          f"{tex_out!r}")
@@ -158,10 +175,38 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
         if mesh is None:
             mesh = mesh_tables(scene)
     if kc.use_kernel(kernels, o[0]):
-        return _first_hits_cuda(scene, o, d, time, live, eps, tex_out,
-                                tables, t_mesh, tri_mesh, mesh)
-    return first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
-                            t_mesh, tri_mesh, mesh)
+        out = _first_hits_cuda(scene, o, d, time, live, eps, tex_out,
+                               tables, t_mesh, tri_mesh, mesh)
+        if not slim:
+            out.update(quad_fields(tables[1], tables[0].shape[0], out["j"],
+                                   tex_out))
+        return out
+    out = first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
+                           t_mesh, tri_mesh, mesh)
+    if slim:
+        for k in ("tan", "bitan", "ptex", "pnm"):
+            del out[k]
+    return out
+
+
+def quad_fields(quad, S, j, tex_out=1):
+    """The per-quad columns of the winning quad of each lane, 0 where no
+    quad wins (j = -1 on a miss or a lane that is not live): tan, bitan
+    (planar; quad table columns 26:32) and, with `tex_out`, the atlas
+    masks ptex, pnm (columns 39, 40), else 0."""
+    Q = quad.shape[0]
+    is_q = (j >= S) & (j < S + Q)
+    row = (quad[torch.clamp(j - S, 0, Q - 1).long()] if Q
+           else quad.new_zeros((j.shape[0], quad.shape[1])))
+
+    def col(c):
+        return torch.where(is_q, row[:, c], 0.0)
+
+    zero = torch.zeros_like(row[:, 0])
+    return dict(tan=(col(26), col(27), col(28)),
+                bitan=(col(29), col(30), col(31)),
+                ptex=col(39) if tex_out else zero,
+                pnm=col(40) if tex_out else zero)
 
 
 def _unpack(out_i, out_f):
@@ -169,10 +214,7 @@ def _unpack(out_i, out_f):
     f = dict(zip(F_FIELDS, out_f))
     out = dict(j=i["j"], tid=i["tid"], mid=i["mid"], row=i["row"],
                sub=i["sub"], p=(f["px"], f["py"], f["pz"]),
-               n=(f["nx"], f["ny"], f["nz"]), u=f["u"], v=f["v"],
-               tan=(f["tx"], f["ty"], f["tz"]),
-               bitan=(f["bx"], f["by"], f["bz"]),
-               ptex=f["ptex"], pnm=f["pnm"])
+               n=(f["nx"], f["ny"], f["nz"]), u=f["u"], v=f["v"])
     if "idx_t" in i:
         out.update(idx_t=i["idx_t"], idx_n=i["idx_n"])
     return out
@@ -180,8 +222,11 @@ def _unpack(out_i, out_f):
 
 def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
                      t_mesh=None, tri_mesh=None, mesh=None):
-    """The plain PyTorch version of the kernel (same expressions, same
-    order; a Python loop over the table rows)."""
+    """The plain PyTorch version of the kernel, in the TPU kernel's SIMD
+    form (a Python loop over the table rows; every candidate test and both
+    a sphere's and a quad's detail on every lane, selected by where). The
+    kernel computes the same expressions, skipping only what changes no
+    bit: rejected candidates and the details of the losers."""
     sph, quad = tables
     S, Q = sph.shape[0], quad.shape[0]
     Nm = scene.mesh_mat.shape[0]
@@ -308,28 +353,22 @@ class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "live", "sph", "quad",
         "t_mesh", "tri_mesh", "mesh_mid", "pack", "out_i", "out_f")] + [
-        ("n", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
-        ("Q", ctypes.c_int), ("Q_real", ctypes.c_int),
-        ("n_meshes", ctypes.c_int), ("T", ctypes.c_int),
-        ("tex_out", ctypes.c_int), ("p_tex", ctypes.c_int),
-        ("p_nm", ctypes.c_int), ("eps", ctypes.c_float)]
-
-
-_MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
+        (name, ctypes.c_int) for name in (
+            "n", "S", "S_real", "Q", "Q_real", "n_meshes", "T", "tex_out",
+            "p_tex", "p_nm")] + [("eps", ctypes.c_float)] + [
+        (name, ctypes.c_int) for name in (
+            "sphere_uv", "exact_atlas", "blocks", "shared_tables")]
 
 
 def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
                      t_mesh=None, tri_mesh=None, mesh=None):
     from tracer_torch.kernels import _build
-    global LAUNCHES
+    global LAUNCHES, TABLES, BLOCKS
     sph, quad = tables
     dev = o[0].device
     N = o[0].shape[0]
     S, Q = sph.shape[0], quad.shape[0]
     S_real, Q_real = min(scene.n_sph_real, S), min(scene.n_quad_real, Q)
-    if (S_real * 9 + Q_real * 47) * 4 > _MAX_SMEM:
-        raise ValueError("first_hits: scene tables exceed the kernel's "
-                         f"{_MAX_SMEM} B of shared memory")
     f32, i32 = torch.float32, torch.int32
     out_i = torch.empty((7 if tex_out == 2 else 5, N), dtype=i32,
                         device=dev)
@@ -362,4 +401,6 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
         err = _build.library().tt_first_hits(ctypes.addressof(a), stream)
         kc.raise_on_error("first_hits", err)
         LAUNCHES += 1
+        TABLES = "shared" if a.shared_tables else "global"
+        BLOCKS = a.blocks
     return _unpack(out_i, out_f)

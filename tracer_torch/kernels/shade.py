@@ -1,27 +1,42 @@
 """Shade+scatter kernel: everything a bounce does after the first hit —
 sky on miss, material and texel fetch, checker/image/emission select,
 normal mapping, direct light from given shadow factors, BSDF scatter on
-the PCG streams, and the wavefront state update — in one pass.
+the PCG streams, and the wavefront state update — in one pass, in place.
 
 Replaces the TPU kernel `tracer/kernels/shade.py::shade_scatter` (Pallas,
 `pl.pallas_call` at shade.py:473) with the CUDA kernel
-`csrc/shade_scatter.cu`, one thread per ray. The material row and the
-pair-atlas texel words are fetched inside the kernel by (mid) and
-(row, sub); the TPU path did both in XLA (`integrator._rows` and the
-pair-row gather with its one-hot select). `shade_scatter_plain` is the
-plain PyTorch version with the same expressions in the same order.
+`csrc/shade_scatter.cu`: persistent blocks that list each tile's active
+lanes in shared memory and run the chain on them only. The material row,
+the winning quad's tangent frame and atlas masks (from the first-hit quad
+table, by j) and the pair-atlas texel words are fetched inside the kernel
+by (mid), (j) and (row, sub); the TPU path did the first and the last in
+XLA (`integrator._rows` and the pair-row gather with its one-hot select)
+and took the frame from its first-hit record. `shade_scatter_plain` is
+the plain PyTorch version with the same expressions in the same order.
 
-What bounds it on an H100: per ray about 190 B of state, hit record,
-material row and texel words in and out, a few dozen flops and ~10 hash
-rounds. Memory traffic and launch latency bound it, far below the
-compute bound; the design reads each input once, keeps the whole chain in
-registers and writes each output once.
+The update is in place: `state`'s o, d, throughput, acc and active
+tensors are written, and nothing is allocated for them. The integrator's
+`trace` owns one set of state buffers per call (`integrator._init_state`
+copies the caller's rays), so a lane that is not active costs the kernel
+its active flag, not a read and a write of 12 floats into a fresh output
+each bounce. The record forward copies each bounce's input state before
+the call. A caller that still needs the state it passes in gives a copy
+(`integrator.copy_state`); the tensors must not alias one another.
 
-Lanes that are not active pass their state through; `last=True` (the
-final bounce) writes only the radiance accumulator. `rec_out=True` (the
-record forward of the backward; pair atlas only) also returns the decoded
-texel img(3) and raw normal-map texel rnm(3) that the pass computes anyway,
-as one [6, N] stack, zero on lanes that are not active.
+What bounds it on an H100: memory traffic, about 100 B read and 48 B
+written per live lane, a few dozen flops and ~10 hash rounds; on sparse
+bounces the dead lanes, which cost their active flag only. The material,
+light and per-quad tables sit in dynamic shared memory (or are read
+through L2 beyond a block's 227 KB: `TABLES`).
+
+An active lane adds its radiance to acc; before the last bounce a lane
+that hits writes its next o, d and throughput, a lane that misses clears
+its active flag; lanes that are not active are not touched. `last=True`
+(the final bounce) writes only acc. `rec_out=True` (the record forward of
+the backward; pair atlas only) also returns the decoded texel img(3), the
+raw normal-map texel rnm(3) and the atlas masks ptex, pnm that the pass
+computes anyway, as one [8, N] stack, zero on lanes that are not active:
+the backward's texel record.
 
 Mesh winners (`j >= S + Q`): p and n come from the first-hit record (it
 holds their triangle hit detail); the diffuse color is the triangle's
@@ -46,7 +61,9 @@ from tracer_torch.render import shading
 
 DIFFUSE, GLASS, MIRROR = 0, 1, 2
 MAT_COLS = 20
-LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
+LAUNCHES = 0   # launches of the CUDA kernel (not of the plain version)
+TABLES = None  # "shared" or "global": where the last launch's tables sat
+BLOCKS = 0     # persistent blocks of the last launch
 
 
 def shade_mat_table(scene):
@@ -82,17 +99,20 @@ def shade_tables(scene):
 
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
                   use_pair=False, last=False, kernels="auto", tables=None,
-                  rec_out=False, mesh=None):
-    """One bounce's shading and scatter over planar ray state.
+                  rec_out=False, mesh=None, quad=None):
+    """One bounce's shading and scatter over planar ray state, in place.
 
     state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
-    `active` bool [N]. bkeys: this bounce's keys (int64 holding uint32).
-    k1: the `first_hits` record (j, mid, p, n, u, v, tan, bitan and, with
-    `use_pair`, row, sub, ptex, pnm). shadows: [L, N] f32 soft-shadow
-    factors, or None when the scene has no lights. `mesh`: a precomputed
-    `intersect.mesh_tables(scene)` (mesh scenes). Returns the next state
-    dict, or only acc (planar) when `last`; with `rec_out` (which needs
-    `use_pair`), the pair (that result, rec [6, N])."""
+    `active` bool [N]; o, d, throughput, acc and active are updated in
+    place (module docstring). bkeys: this bounce's keys (int64 holding
+    uint32). k1: the `first_hits` record (j, tid, mid, p, n, u, v and,
+    with `use_pair`, row, sub from `tex_out >= 1`; the slim record
+    suffices). shadows: [L, N] f32 soft-shadow factors, or None when the
+    scene has no lights. `mesh`: a precomputed `intersect.mesh_tables
+    (scene)` (mesh scenes); `quad`: the first-hit quad table
+    (`intersect.intersect_tables(scene)[1]`). Returns `state`, or its acc
+    when `last`; with `rec_out` (which needs `use_pair`), the pair (that
+    result, rec [8, N])."""
     if rec_out and not use_pair:
         raise ValueError("shade_scatter: rec_out needs use_pair")
     if scene.mesh_mat.shape[0] > 0 and mesh is None:
@@ -103,6 +123,8 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
             "(ROADMAP.md Queue A, 'Sky image, sphere UV and exact atlas')")
     if tables is None:
         tables = shade_tables(scene)
+    if quad is None:
+        quad = kintersect.intersect_tables(scene)[1]
     L = scene.light_pos.shape[0]
     N = state["d"][0].shape[0]
     if L > 0:
@@ -112,15 +134,18 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
     if kc.use_kernel(kernels, state["d"][0]):
         return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
                                    shadows, use_pair, last, tables, rec_out,
-                                   mesh)
+                                   mesh, quad)
     return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
                                shadows, use_pair, last, tables, rec_out,
-                               mesh)
+                               mesh, quad)
 
 
 def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables, rec_out=False, mesh=None):
-    """The plain PyTorch version of the kernel (planar 3-tuples)."""
+                        use_pair, last, tables, rec_out=False, mesh=None,
+                        quad=None):
+    """The plain PyTorch version of the kernel (planar 3-tuples): the
+    bounce in `torch.where` form, then its results copied into the
+    state's tensors, as the kernel writes them."""
     mat_tab, light_tab, _ = tables
     S = scene.sph_center.shape[0]
     Q = scene.quad_v0.shape[0]
@@ -157,13 +182,14 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     same = shading.trunc_mod2(u * sx) == shading.trunc_mod2(v * sy)
     checker = vp.where(same, check1, check2)
     img = shading.magenta_checker_p(u, v)
-    if use_pair:
+    if use_pair:   # the winning quad's frame and atlas masks, by j
+        qf = kintersect.quad_fields(quad, S, k1["j"])
         prow = torch.clamp(k1["row"], 0, scene.pair_pack.shape[0] - 1).long()
         sub = k1["sub"].long()
         vt = scene.pair_pack[prow, sub]
         vn = scene.pair_pack[prow, shading.PACK_BLOCK + sub]
         img_t = shading.decode_word(vt)
-        img = vp.where(k1["ptex"] > 0.5, img_t, img)
+        img = vp.where(qf["ptex"] > 0.5, img_t, img)
     is_check = textype == shading.TEX_CHECKERBOARD
     is_img = textype == shading.TEX_IMAGE
     dcol = vp.where(is_img, img, vp.where(is_check, checker, diffuse))
@@ -181,13 +207,13 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
         rnm = shading.decode_word(vn)
         if rec_out:
             rec = torch.stack([torch.where(active, c, 0.0)
-                               for c in img_t + rnm])
+                               for c in img_t + rnm
+                               + (qf["ptex"], qf["pnm"])])
         nm = tuple(2.0 * c - 1.0 for c in rnm)
-        tan, bitan = k1["tan"], k1["bitan"]
+        tan, bitan = qf["tan"], qf["bitan"]
         n2 = vp.normalize(tuple(nm[0] * tan[a] + nm[1] * bitan[a]
                                 + nm[2] * n[a] for a in range(3)))
-        n = vp.where(is_quad & (k1["pnm"] > 0.5) & (use_nmf > 0.5), n2, n)
-
+        n = vp.where(is_quad & (qf["pnm"] > 0.5) & (use_nmf > 0.5), n2, n)
     # ---- emission (spheres and squares only) ----------------------------
     ecol = vp.where(textype == shading.TEX_NONE, light_col,
                     vp.where(is_img, img,
@@ -209,7 +235,9 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     acc = tuple(a + torch.where(live, t * (c + k_emit * e), 0.0)
                 for a, t, c, e in zip(acc, th, cl, ecol))
     if last:
-        return (acc, rec) if rec_out else acc
+        for t, x in zip(state["acc"], acc):
+            t.copy_(x)
+        return (state["acc"], rec) if rec_out else state["acc"]
 
     # ---- BSDF scatter (Material.cpp:26-60) ------------------------------
     ddn = vp.dot(d, n)
@@ -248,19 +276,23 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     nxt = dict(
         o=vp.where(live, tuple(eps * dout[a] + p[a] for a in range(3)),
                    state["o"]),
-        d=vp.where(live, dout, d), time=state["time"],
+        d=vp.where(live, dout, d),
         throughput=vp.where(live, tuple(t * c for t, c in zip(th, dcol)),
                             th),
-        acc=acc, active=live)
-    return (nxt, rec) if rec_out else nxt
+        acc=acc)
+    for key, val in nxt.items():
+        for t, x in zip(state[key], val):
+            t.copy_(x)
+    state["active"].copy_(live)
+    return (state, rec) if rec_out else state
 
 
 _IO_FIELDS = (
-    "dx", "dy", "dz", "ox", "oy", "oz", "thx", "thy", "thz",
+    "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
     "ax", "ay", "az", "active", "key", "j", "px", "py", "pz",
-    "nx", "ny", "nz", "u", "v", "tnx", "tny", "tnz", "btx", "bty", "btz",
-    "mid", "row", "sub", "ptex", "pnm", "shadows", "mat", "light", "pair",
-    "out", "active_out", "rec", "tid", "pack")
+    "nx", "ny", "nz", "u", "v", "mid", "row", "sub", "shadows", "mat",
+    "light", "quad", "pair", "rec", "tid", "pack", "sky", "tex_data",
+    "nm_data")
 
 
 class _IO(ctypes.Structure):
@@ -272,21 +304,23 @@ class _Params(ctypes.Structure):
     """Mirror of `ShadeParams` in csrc/shade_scatter.cu (same order)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last",
-        "rec_out", "n_meshes", "T")] + [
-        (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")]
+        "rec_out", "n_meshes", "T", "has_sky", "exact_atlas")] + [
+        (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")] + [
+        (name, ctypes.c_int) for name in ("blocks", "shared_tables")]
 
 
 def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
-                        use_pair, last, tables, rec_out=False, mesh=None):
+                        use_pair, last, tables, rec_out=False, mesh=None,
+                        quad=None):
     from tracer_torch.kernels import _build
-    global LAUNCHES
+    global LAUNCHES, TABLES, BLOCKS
     mat_tab, light_tab, dark = tables
     d0 = state["d"][0]
     dev, N = d0.device, d0.shape[0]
     L = scene.light_pos.shape[0]
     f32, i32 = torch.float32, torch.int32
     io = _IO()
-    planar = dict(d="d", o="o", th="throughput", a="acc")
+    planar = dict(o="o", d="d", th="throughput", a="acc")
     for pre, key in planar.items():
         for ax_, t in zip("xyz", state[key]):
             setattr(io, pre + ax_, kc.check(f"{key}.{ax_}", t, f32, (N,), dev))
@@ -295,16 +329,18 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
     io.key = kc.check("keys", keys32, i32, (N,), dev)
     for name in ("j", "mid", "row", "sub"):
         setattr(io, name, kc.check(name, k1[name], i32, (N,), dev))
-    for pre, key in (("p", "p"), ("n", "n"), ("tn", "tan"), ("bt", "bitan")):
+    for pre, key in (("p", "p"), ("n", "n")):
         for ax_, t in zip("xyz", k1[key]):
             setattr(io, pre + ax_, kc.check(f"{key}.{ax_}", t, f32, (N,), dev))
-    for name in ("u", "v", "ptex", "pnm"):
+    for name in ("u", "v"):
         setattr(io, name, kc.check(name, k1[name], f32, (N,), dev))
     if L > 0:
         io.shadows = kc.check("shadows", shadows, f32, (L, N), dev)
     M = mat_tab.shape[0]
     io.mat = kc.check("mat", mat_tab, f32, (M, MAT_COLS), dev)
     io.light = kc.check("light", light_tab, f32, (max(L, 1), 6), dev)
+    Q = quad.shape[0]
+    io.quad = kc.check("quad", quad, f32, (Q, 47), dev)
     Rp = scene.pair_pack.shape[0]
     io.pair = kc.check("pair_pack", scene.pair_pack, i32,
                        (Rp, 2 * shading.PACK_BLOCK), dev)
@@ -315,18 +351,11 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
         io.tid = kc.check("tid", k1["tid"], i32, (N,), dev)
         io.pack = kc.check("pack", pack, f32,
                            (T, kintersect.MESH_PACK_COLS), dev)
-    out = torch.empty((3 if last else 12, N), dtype=f32, device=dev)
-    io.out = out.data_ptr()
-    active_out = None
-    if not last:
-        active_out = torch.empty(N, dtype=torch.bool, device=dev)
-        io.active_out = active_out.data_ptr()
     rec = None
     if rec_out:
-        rec = torch.empty((6, N), dtype=f32, device=dev)
+        rec = torch.empty((8, N), dtype=f32, device=dev)
         io.rec = rec.data_ptr()
-    prm = _Params(n=N, M=M, Rp=Rp, L=L,
-                  S=scene.sph_center.shape[0], Q=scene.quad_v0.shape[0],
+    prm = _Params(n=N, M=M, Rp=Rp, L=L, S=scene.sph_center.shape[0], Q=Q,
                   ref=int(cfg.compat == "reference"),
                   has_pair=int(bool(use_pair)), last=int(bool(last)),
                   rec_out=int(bool(rec_out)), n_meshes=Nm, T=T,
@@ -338,10 +367,7 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
             ctypes.addressof(io), ctypes.addressof(prm), stream)
         kc.raise_on_error("shade_scatter", err)
         LAUNCHES += 1
-    if last:
-        res = (out[0], out[1], out[2])
-    else:
-        res = dict(o=(out[0], out[1], out[2]), d=(out[3], out[4], out[5]),
-                   time=state["time"], throughput=(out[6], out[7], out[8]),
-                   acc=(out[9], out[10], out[11]), active=active_out)
+        TABLES = "shared" if prm.shared_tables else "global"
+        BLOCKS = prm.blocks
+    res = state["acc"] if last else state
     return (res, rec) if rec_out else res

@@ -34,9 +34,12 @@ closest hit still decides, so the walk has no any-hit exit: a hit in
 
 What bounds it on an H100: the walks' chains of dependent L2 loads, not
 bytes. A hit point reads 24 B and writes 4 B per light; per light it
-traces K rays, each tested against every sphere and quad (from shared
-memory) and walked through every mesh's BVH (`chip_smoke.py` counts the
-tests, and the visits and triangle tests of each shadow ray).
+traces K rays, each tested against every sphere and quad (from dynamic
+shared memory, or through L2 when the tables exceed a block's 227 KB:
+`TABLES`) and walked through every mesh's BVH (`chip_smoke.py` counts the
+tests, and the visits and triangle tests of each shadow ray). The meshes'
+node ranges come as a device array (`traverse.mesh_ranges`): any number
+of meshes.
 
 Lanes with `live` false return 1.0.
 """
@@ -54,8 +57,9 @@ from tracer_torch.kernels import common as kc
 from tracer_torch.kernels import traverse as ktraverse
 
 GLASS = 1
-LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
-BLOCKS = 0    # persistent blocks of the last launch (one wave)
+LAUNCHES = 0   # launches of the CUDA kernel (not of the plain version)
+BLOCKS = 0     # persistent blocks of the last launch (one wave)
+TABLES = None  # "shared" or "global": where the last launch's tables sat
 
 
 def shadow_tables(scene):
@@ -214,32 +218,24 @@ class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "px", "py", "pz", "tm", "key", "live", "light", "sph", "quad",
         "mesh", "nodes_f", "nodes_i", "leaf", "out", "counts", "tasks",
-        "work")] + [
-        ("n", ctypes.c_int), ("n_meshes", ctypes.c_int),
-        ("leaf_width", ctypes.c_int), ("blocks", ctypes.c_int),
-        ("root", ctypes.c_int * ktraverse.MAX_MESHES),
-        ("end", ctypes.c_int * ktraverse.MAX_MESHES),
+        "work", "ranges")] + [
+        (name, ctypes.c_int) for name in (
+            "n", "n_meshes", "leaf_width", "blocks", "shared_tables")] + [
         ("L", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
         ("Q", ctypes.c_int), ("Q_real", ctypes.c_int), ("K", ctypes.c_int),
         ("ref", ctypes.c_int), ("eps", ctypes.c_float),
         ("offset_eps", ctypes.c_float)]
 
 
-_MAX_SMEM = 48 * 1024  # bytes of shared memory the kernel may take
-
-
 def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
     from tracer_torch.kernels import _build
-    global LAUNCHES, BLOCKS
+    global LAUNCHES, BLOCKS, TABLES
     light, sph, quad, mesh = tables
     dev = p[0].device
     N = p[0].shape[0]
     L, S, Q, Nm = light.shape[0], sph.shape[0], quad.shape[0], mesh.shape[0]
     S_real, Q_real = min(scene.n_sph_real, S), min(scene.n_quad_real, Q)
     K = cfg.shadow_rays
-    if (L * 4 + S_real * 9 + Q_real * 20 + Nm) * 4 > _MAX_SMEM:
-        raise ValueError("shadow_factors: scene tables exceed the kernel's "
-                         f"{_MAX_SMEM} B of shared memory")
     if not 0 < K < 2 ** 16:
         raise ValueError("shadow_factors: the kernel counts 1 to 65535 "
                          f"samples per light, got shadow_rays={K}")
@@ -277,4 +273,5 @@ def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
         kc.raise_on_error("shadow", err)
         LAUNCHES += 1
         BLOCKS = a.blocks
+        TABLES = "shared" if a.shared_tables else "global"
     return out

@@ -27,7 +27,11 @@ Semantics (mirrored from the TPU kernel and `bvh_closest_hit`):
 - the per-triangle constants come from the leaf table
   (`traverse_tables`), in the order of traverse.py:140-170;
 - within a leaf strict-< keeps the first minimum;
-- lanes with `live` false return (INF, -1).
+- lanes with `live` false return (INF, -1);
+- any number of meshes: their node ranges reach the kernel as a device
+  array (`mesh_ranges`); each block keeps the first `ROOT_CACHE` root
+  nodes in shared memory and reads the others through the read-only
+  cache.
 """
 
 from __future__ import annotations
@@ -40,9 +44,10 @@ from tracer_torch.geometry import primitives as prim
 from tracer_torch.kernels import common as kc
 
 TRI_COLS = 32     # padded per-triangle slot in a leaf row
-MAX_MESHES = 16   # mesh ranges the kernel's argument struct holds
 LAUNCHES = 0      # launches of the CUDA kernel (not of the plain version)
 BLOCKS = 0        # persistent blocks of the last launch (one wave)
+ROOT_CACHE = 16   # root nodes a block keeps in shared memory (csrc/bvh.cuh)
+_RANGES = {}      # (device, mesh_root, mesh_end) -> mesh_ranges' tensor
 
 
 def traverse_tables(scene):
@@ -156,11 +161,20 @@ class _Args(ctypes.Structure):
     """Mirror of `TraverseArgs` in csrc/traverse.cu (same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "ox", "oy", "oz", "dx", "dy", "dz", "live", "nodes_f", "nodes_i",
-        "leaf", "out_t", "out_tri", "tasks", "work")] + [
-        ("n", ctypes.c_int), ("n_meshes", ctypes.c_int),
-        ("leaf_width", ctypes.c_int), ("blocks", ctypes.c_int),
-        ("root", ctypes.c_int * MAX_MESHES),
-        ("end", ctypes.c_int * MAX_MESHES)]
+        "leaf", "out_t", "out_tri", "tasks", "work", "ranges")] + [
+        (name, ctypes.c_int) for name in (
+            "n", "n_meshes", "leaf_width", "blocks")]
+
+
+def mesh_ranges(scene, dev):
+    """[Nm, 2] int32 on `dev`: each mesh's node range (root, end) in the
+    flattened BVH, made once per scene and device."""
+    key = (str(dev), tuple(scene.mesh_root), tuple(scene.mesh_end))
+    if key not in _RANGES:
+        _RANGES[key] = torch.tensor(
+            list(zip(scene.mesh_root, scene.mesh_end)),
+            dtype=torch.int32, device=dev).reshape(-1, 2)
+    return _RANGES[key]
 
 
 def fill_tree_args(a, scene, tables, dev):
@@ -169,18 +183,14 @@ def fill_tree_args(a, scene, tables, dev):
     fields)."""
     nodes_f, nodes_i, leaf = tables
     Nm = len(scene.mesh_root)
-    if Nm > MAX_MESHES:
-        raise ValueError(f"the BVH walk takes at most {MAX_MESHES} meshes, "
-                         f"got {Nm}")
     LW = scene.leaf_width
     Bn = nodes_f.shape[0]
     a.nodes_f = kc.check("nodes_f", nodes_f, torch.float32, (Bn, 8), dev)
     a.nodes_i = kc.check("nodes_i", nodes_i, torch.int32, (Bn, 2), dev)
     a.leaf = kc.check("leaf", leaf, torch.float32,
                       (leaf.shape[0], LW * TRI_COLS), dev)
+    a.ranges = mesh_ranges(scene, dev).data_ptr()
     a.n_meshes, a.leaf_width = Nm, LW
-    for m, (r, e) in enumerate(zip(scene.mesh_root, scene.mesh_end)):
-        a.root[m], a.end[m] = r, e
 
 
 def check_items(kernel, n_items):

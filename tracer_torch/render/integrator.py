@@ -7,11 +7,13 @@ walk `traverse.mesh_closest_hits` (closest raw hit per ray and mesh);
 winner detail + pair-atlas texel index); on lit scenes
 `shadow.shadow_factors` (the soft-shadow factor of every light at each
 live hit point); and `shade_scatter` (texels, emission, lighting, BSDF
-scatter, state update). Rays and hit points go to the walk and the
-shadow kernels in ray order: the JAX package's sorted queues
-(`cfg.ray_sort`) let a TPU packet share one walk, but each GPU thread
-walks its own ray, and on the H100 the sorted dispatch cost more than it
-saved (PERF.md, section 6), so `ray_sort` has no effect in the port.
+scatter, state update, in place: `trace` owns the bounce state's
+buffers, `_init_state` copies the caller's rays into them). Rays and hit
+points go to the walk and the shadow kernels in ray order: the JAX
+package's sorted queues (`cfg.ray_sort`) let a TPU packet share one
+walk, but each GPU thread walks its own ray, and on the H100 the sorted
+dispatch cost more than it saved (PERF.md, section 6), so `ray_sort` has
+no effect in the port.
 `lax.scan` over bounces becomes a Python loop with the final bounce
 specialised the same way: it writes only `acc`, and it skips the texture
 fetch when the scene has no lights and no emissive TEX_IMAGE material
@@ -104,13 +106,35 @@ def _shadow_factors_all(scene, cfg: RenderConfig, p, time, keys, live,
 
 
 def _init_state(o, d, time):
-    zero = torch.zeros_like(time)
+    """The bounce state of a ray batch in buffers of its own: one [12, N]
+    f32 block whose rows are o(3), d(3), throughput(3), acc(3), and the
+    active flags. The shade kernel updates them in place, so the caller's
+    o and d are copied (they may be a camera's tensors that carry grad);
+    `time` is read only."""
+    N = time.shape[0]
+    buf = torch.empty((12, N), dtype=torch.float32, device=time.device)
+    for k, c in enumerate((*o, *d)):
+        buf[k].copy_(c)
+    buf[6:9].fill_(1.0)
+    buf[9:12].zero_()
     return dict(
-        o=tuple(c + zero for c in o), d=tuple(d), time=time,
-        throughput=(zero + 1.0, zero + 1.0, zero + 1.0),
+        o=tuple(buf[0:3]), d=tuple(buf[3:6]), time=time,
+        throughput=tuple(buf[6:9]),
         active=torch.ones_like(time, dtype=torch.bool),
-        acc=(zero, zero, zero),
+        acc=tuple(buf[9:12]),
     )
+
+
+def copy_state(state):
+    """A copy of a bounce state in buffers of its own (`_init_state`'s
+    layout), for a caller that keeps the state it hands to the in-place
+    shade pass."""
+    c = _init_state(state["o"], state["d"], state["time"])
+    for key in ("throughput", "acc"):
+        for t, x in zip(c[key], state[key]):
+            t.copy_(x)
+    c["active"].copy_(state["active"])
+    return c
 
 
 def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
@@ -119,11 +143,11 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
     body, Scene.h:258-342): the BVH walk (mesh scenes), the first-hit
     kernel, the shadow kernel at the live hit points (lit scenes), then the
     shade+scatter kernel.
-    Returns (the next state, or the state with only `acc` updated when
-    `last`; the bounce's record for the backward when `with_rec`, else
-    None). The record is (reci [4, N] i32 = j, tid, idx_t, idx_n; recf
-    [8, N] f32 = img(3), rnm(3), ptex, pnm), zero where the bounce fetches
-    no texel."""
+    Returns (`state`, updated in place to the next state, or with only
+    `acc` updated when `last`; the bounce's record for the backward when
+    `with_rec`, else None). The record is (reci [4, N] i32 = j, tid,
+    idx_t, idx_n; recf [8, N] f32 = img(3), rnm(3), ptex, pnm: the shade
+    kernel's `rec_out`), zero where the bounce fetches no texel."""
     L = scene.light_pos.shape[0]
     n_rem = cfg.max_bounces - b  # NRemainingBounces at this depth
     bkeys = rng.salted(keys, b)
@@ -143,28 +167,26 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
         scene, o, d, state["time"], active,
         eps=cfg.epsilon, tex_out=(2 if rec_tex else int(use_pair)),
         kernels=cfg.kernels, tables=tables.intersect, t_mesh=t_raw,
-        tri_mesh=tri_raw, mesh=tables.mesh)
+        tri_mesh=tri_raw, mesh=tables.mesh, slim=True)
     shadows = _shadow_factors_all(scene, cfg, k1["p"], state["time"], bkeys,
                                   active & (k1["j"] >= 0), tables)
     out = kshade.shade_scatter(
         scene, cfg, state, bkeys, k1, n_rem, shadows=shadows,
         use_pair=use_pair, last=last, kernels=cfg.kernels,
-        tables=tables.shade, rec_out=rec_tex, mesh=tables.mesh)
-    if rec_tex:
-        out, img_rnm = out
-    nxt = dict(state, acc=out) if last else out
+        tables=tables.shade, rec_out=rec_tex, mesh=tables.mesh,
+        quad=tables.intersect[1])
     if not with_rec:
-        return nxt, None
+        return state, None
     j = k1["j"]
     if rec_tex:
         reci = torch.stack([j, k1["tid"], k1["idx_t"], k1["idx_n"]])
-        recf = torch.cat([img_rnm, torch.stack([k1["ptex"], k1["pnm"]])])
+        recf = out[1]
     else:
         zi = torch.zeros_like(j)
         reci = torch.stack([j, k1["tid"], zi, zi])
         recf = torch.zeros((8,) + tuple(j.shape), dtype=torch.float32,
                            device=j.device)
-    return nxt, (reci, recf)
+    return state, (reci, recf)
 
 
 def _finish(state, cfg: RenderConfig):
@@ -177,7 +199,7 @@ def _finish(state, cfg: RenderConfig):
 
 
 def _st10(state):
-    """A bounce's input state as one [10, N] stack: o(3), d(3),
+    """A copy of a bounce's input state as one [10, N] stack: o(3), d(3),
     throughput(3), active (as 0/1)."""
     return torch.stack(list(state["o"]) + list(state["d"])
                        + list(state["throughput"])
@@ -222,8 +244,8 @@ class _TraceRecordReplay(torch.autograd.Function):
     The forward reads the texels from `pair_pack`, the pristine u8 atlas,
     while `tex_data` / `nm_data` receive the gradient: that is exact only
     while those tensors still hold the pristine texels. Training that moves
-    the texels needs the exact-atlas path (ROADMAP.md Queue A, items 9
-    and 10)."""
+    the texels needs the exact-atlas path (ROADMAP.md Queue A, items 3
+    and 4)."""
 
     @staticmethod
     def forward(ctx, scene, cfg, keys, tables, *inputs):

@@ -1,7 +1,8 @@
 """Test scenes for the parity tests and the chip smoke run (not a render
 feature): a Cornell box whose image textures and normal maps are seeded
-uint8 arrays instead of the reference's PPM assets, and procedural
-stand-in meshes in place of the reference's OFF meshes.
+uint8 arrays instead of the reference's PPM assets, procedural
+stand-in meshes in place of the reference's OFF meshes, and scenes past
+the kernels' table and mesh-count limits (`tiled_wall`, `mesh_grid`).
 
 The Cornell builder loads two textures (brick, sand) and three normal maps
 (brick, floor, water — the last unused). `fill_cornell_textures` fills those
@@ -121,4 +122,66 @@ def flamingo_pond_standin(zoo, n_pond: int = 11_100, n_flamingo: int = 52_900,
     sb = zoo.setup_flamingo_pond()
     add_standin(sb, n_pond, seed, "pond")
     add_standin(sb, n_flamingo, seed + 1, "pond_flamingo")
+    return sb
+
+
+def tiled_wall(sb, n_quads: int, seed: int = 0):
+    """Fill a scene builder of either package with a lit wall of `n_quads`
+    small seeded tiles in front of the default camera, tilted and set at
+    seeded depths so that scattered rays reach other tiles, plus a floor,
+    a back wall, a sphere and one light: a scene whose quad tables outgrow
+    shared memory (the kernels' table limits). Five materials: three diffuse, a
+    mirror and a glass (two-sided). Returns `sb`."""
+    mod = importlib.import_module(type(sb).__module__)
+    rs = np.random.RandomState(seed)
+    mats = [mod.Material(diffuse=c) for c in
+            ((0.8, 0.3, 0.2), (0.2, 0.7, 0.3), (0.3, 0.4, 0.9))]
+    mats.append(mod.Material(diffuse=(0.9, 0.9, 0.9), mtype=2))
+    mats.append(mod.Material(diffuse=(0.8, 0.8, 1.0), mtype=1,
+                             transparency=0.5, index_medium=1.5))
+    sb.add_light((0., 3.5, 4.), radius=1.0, color=(1.0, 0.95, 0.9))
+    sb.add_sphere((1.5, -1.0, 1.5), 0.6, mod.Material(diffuse=(0.9, 0.8, 0.2)))
+    floor = sb.add_square((-1., -1., 0.), (1., 0., 0.), (0., 1., 0.), 20.,
+                          20., mod.Material(diffuse=(0.6, 0.6, 0.6)))
+    floor.rotate_x(-90).translate((0., -2.6, 0.))
+    sb.add_square((-10., -4., -4.), (1., 0., 0.), (0., 1., 0.), 20., 12.,
+                  mod.Material(diffuse=(0.7, 0.7, 0.6)))
+    cols = int(np.ceil(np.sqrt(n_quads * 1.75)))
+    rows = int(np.ceil(n_quads / cols))
+    cw, ch = 9.0 / cols, 5.0 / rows
+    for k in range(n_quads):
+        r, c = divmod(k, cols)
+        w, h = 0.8 * cw, 0.8 * ch
+        q = sb.add_square((-w / 2, -h / 2, 0.), (1., 0., 0.), (0., 1., 0.),
+                          w, h, mats[rs.randint(len(mats))])
+        q.rotate_x(rs.uniform(-30., 30.)).rotate_y(rs.uniform(-30., 30.))
+        q.translate((-4.5 + (c + 0.5) * cw, -2.3 + (r + 0.5) * ch,
+                     -1.0 + rs.uniform(-0.6, 0.6)))
+    return sb
+
+
+def mesh_grid(sb, n_meshes: int, n_tris: int = 2_000, seed: int = 0):
+    """Fill a scene builder of either package with `n_meshes` seeded
+    `standin_mesh` tori on a grid in front of the default camera, each
+    turned its own way, plus a floor and one light: a scene with more
+    meshes than a fixed per-launch table of them would hold. Returns
+    `sb`."""
+    mod = importlib.import_module(type(sb).__module__)
+    rs = np.random.RandomState(seed)
+    sb.add_light((1., 4., 3.), radius=1.0, color=(1.0, 1.0, 1.0))
+    floor = sb.add_square((-1., -1., 0.), (1., 0., 0.), (0., 1., 0.), 20.,
+                          20., mod.Material(diffuse=(0.6, 0.6, 0.6)))
+    floor.rotate_x(-90).translate((0., -2.6, 0.))
+    cols = int(np.ceil(np.sqrt(n_meshes * 1.75)))
+    rows = int(np.ceil(n_meshes / cols))
+    for k in range(n_meshes):
+        r, c = divmod(k, cols)
+        verts, tris, colors = standin_mesh(n_tris, seed + k)
+        m = mod.MeshObject(verts, tris, vert_colors=colors,
+                           material=mod.Material(diffuse=(0.5, 0.5, 0.5)))
+        m.scale((1.6,) * 3).rotate_y(rs.uniform(0., 360.))
+        m.rotate_x(rs.uniform(-40., 40.))
+        m.translate((-4.2 + (c + 0.5) * 8.4 / cols,
+                     -2.2 + (r + 0.5) * 4.4 / rows, -1.0))
+        sb.add_mesh(m)
     return sb

@@ -35,7 +35,24 @@ dynamic shared memory and are read through L2) and 17 meshes
 (`testing.mesh_grid`: B5 keeps 16 roots in shared memory and reads the
 17th through L1), B5, B1, B6 and B2 against their plain versions at
 bounces 0 and 1, with the table variant each took (checked against the
-one the case is there to exercise).
+one the case is there to exercise). Then every zoo scene and its
+gradient: on `testing.rt_weekend_standin` (`setup_rt_in_a_weekend` with a
+seeded 1024x2048 sky and 512x1024 sun texture: an image sky, a textured
+emissive sphere, 3 lights) B1 with the sphere-UV index (tex_out 1 and 2)
+and B2 with the image sky (with and without rec_out) against their plain
+versions at bounces 0 and 1 under both compat modes, each beside the
+same call without the new input; its 16-spp render through `render`
+(B1, B2 and B6 launched 96 times) and that of `raccoon_standin` (a sky,
+three textured glass and mirror spheres, a 5,000-triangle stand-in
+mesh); the textured Cornell under `packed_atlas="off"` (the general
+route: B1, then torch ops; B2 does not run there); and the general
+backward (the replay's vjp, outside the hand-written class) of the
+protocol step on rt_weekend_standin (mat_diffuse, sph_center, tex_data;
+the fold holds every bounce, the last one too) and on flamingo_standin
+(mesh_verts, mat_diffuse, sph_center), with the step's median wall time
+over reps and its spread, the peak memory, the launch counts and the
+1-spp gradients against the plain path, and a profile of the
+rt_weekend_standin step (device busy, idle share, launches, top kernels).
 Every phase prints one line; any failure is an uncaught exception and a
 non-zero exit. The last two
 lines are a JSON record of the kernels and `{"ok": true, ...}`.
@@ -51,7 +68,10 @@ and sorted order, the plain versions in cuBLAS's and stream order): the
 tables within 1e-5 of their largest entry, the fold rtol 1e-5 / atol
 1e-5 * max|plain| (NaN and inf where the plain fold has them), max
 relative error 1e-4 for the 1-spp gradients. B5's (t, tri) and B6's
-factors must match exactly.
+factors must match exactly. B1's sphere-UV index and B2's image sky: 0
+discrete mismatches (a mismatch where B1's texture coordinates differ
+from the plain version's by at most an ulp of acos / atan2 would be
+counted as `ulp_ties` and explained; any other fails).
 """
 
 from __future__ import annotations
@@ -88,7 +108,7 @@ from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
 from tracer_torch.testing import (  # noqa: E402
     FULL, fill_cornell_textures, flamingo_pond_standin, flamingo_standin,
-    mesh_grid, tiled_wall)
+    mesh_grid, raccoon_standin, rt_weekend_standin, tiled_wall)
 
 W, H, SPP, BOUNCES = 850, 480, 16, 6
 PAIR_SPP = 2
@@ -944,16 +964,18 @@ def profile_phase(label, sb, trainable=TRAINABLE):
               e.count) for e in top])
 
 
-def render_phase(label, sb, spp, plain_frame=True):
+def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
     """The render through the normal entry point, with launch counts, two
     more frames (mesh scenes: the frame time's spread), then the 1-spp
     radiance against the plain path on the card. `plain_frame`: also time
     the plain path's whole frame (the walk's and the shadows' plain
     versions make that minutes long on the mesh scenes, whose plain time
-    is given at 1 spp instead)."""
+    is given at 1 spp instead). `cfg_kw`: more RenderConfig fields (the
+    exact atlas: packed_atlas="off", whose general route runs no B2)."""
     scene = compile_scene(sb, device=DEV)
     cam = default_camera(W / H, device=DEV)
-    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
+    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES,
+                       **cfg_kw)
     renderer.render(scene, cam, cfg, nsamples=1)  # warm-up
     torch.cuda.synchronize()
     reset_launches()
@@ -964,7 +986,9 @@ def render_phase(label, sb, spp, plain_frame=True):
     launches = launch_counts("first_hits", "shade_scatter", "traverse",
                              "shadow")
     meshes = scene.mesh_mat.shape[0] > 0
-    expect = dict(first_hits=spp * BOUNCES, shade_scatter=spp * BOUNCES,
+    fused = integrator._fused(scene, cfg)
+    expect = dict(first_hits=spp * BOUNCES,
+                  shade_scatter=spp * BOUNCES if fused else 0,
                   traverse=spp * BOUNCES if meshes else 0,
                   shadow=spp * BOUNCES if scene.light_pos.shape[0] else 0)
     if launches != expect:
@@ -1000,10 +1024,235 @@ def render_phase(label, sb, spp, plain_frame=True):
     out = os.path.join(tempfile.mkdtemp(), "rendu.ppm")
     write_ppm(out, img)
     say("render", scene=label, size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
-        frame_s=f"{frame_s:.4f}", **extra,
+        route="fused" if fused else "general", frame_s=f"{frame_s:.4f}",
+        **extra,
         radiance_max_abs_err=f"{err:.3g}", mean=f"{img.mean():.6f}",
         launches=launches, ppm=out)
     return launches
+
+
+def sky_uv_phase(label, scene, stats):
+    """B1 with the sphere-UV texel index (`sphere_tex`, tex_out 1 and 2)
+    and B2 with the image sky (and the sphere winners' masks, `mat_pair`,
+    with and without `rec_out`) against their plain versions on a scene
+    with textured spheres and an image skybox, at bounces 0 and 1 under
+    both compat modes. Each line gives the same call's time without the
+    new input (B1 without `sphere_tex`; B2 with the sky switched off:
+    `has_sky_image=False`) beside it. The plain versions take acos, atan2
+    and asin from torch's CUDA math, the kernels from the same library
+    built with --fmad=false: a discrete mismatch is allowed only where the
+    two sides' texture coordinates (B1) differ by at most one ulp, and
+    each is counted (`ulp_ties`)."""
+    cam = default_camera(W / H, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    o, d, tm, keys = renderer.camera_batch(cam, W, H, pid, 0, 0)
+    tables = integrator.prepare(scene)
+    itab, stab = tables.intersect, tables.shade
+    stex, mpair = tables.sphere_tex, tables.mat_pair
+    if stex is None or mpair is None or not scene.has_sky_image:
+        raise AssertionError(f"{label}: no sphere-UV tables or no sky")
+    no_sky = dataclasses.replace(scene, has_sky_image=False)
+    state = integrator._init_state(o, d, tm)
+    S = scene.sph_center.shape[0]
+    L = scene.light_pos.shape[0]
+    for b in (0, 1):
+        bkeys = rng.salted(keys, b)
+        live = state["active"]
+        n_live = int(live.sum())
+        for tex_out in (1, 2):
+            def fh(mode, uv=True):
+                return kintersect.first_hits(
+                    scene, state["o"], state["d"], state["time"], live,
+                    1e-5, tex_out, kernels=mode, tables=itab, slim=True,
+                    sphere_tex=stex if uv else None)
+
+            k1, k1p = fh("auto"), fh("off")
+            mism, err = compare(k1, k1p, live)
+            ties = 0
+            if mism:   # only where u or v moved by one ulp
+                du = (k1["u"] != k1p["u"]) | (k1["v"] != k1p["v"])
+                one = ((k1["u"] - k1p["u"]).abs()
+                       <= torch.finfo(torch.float32).eps * k1p["u"].abs()
+                       ) & ((k1["v"] - k1p["v"]).abs()
+                            <= torch.finfo(torch.float32).eps
+                            * k1p["v"].abs())
+                bad = torch.zeros_like(live)
+                for key in ("j", "tid", "mid", "row", "sub", "idx_t",
+                            "idx_n"):
+                    if key in k1:
+                        bad |= live & (k1[key] != k1p[key])
+                ties = int(bad.sum())
+                if bool((bad & ~(du & one)).any()):
+                    raise AssertionError(
+                        f"first_hits {label} b{b} tex_out={tex_out}: "
+                        f"{mism} discrete mismatches not explained by an "
+                        f"ulp of u, v")
+                mism = 0
+            check(f"first_hits {label} b{b} sphere_uv tex_out={tex_out}",
+                  mism, err)
+            sph = live & (k1p["j"] >= 0) & (k1p["j"] < S)
+            ms = timed(lambda: fh("auto"), 20)
+            ms_old = timed(lambda: fh("auto", uv=False), 20)
+            pms = timed(lambda: fh("off"), 3)
+            nb = (first_hits_bytes(live, tex_out, 0) + nbytes(itab, stex))
+            b2ms, by = bound2(nb, n_live * (
+                (scene.n_sph_real + scene.n_quad_real) * OPS_TABLE
+                + OPS_DETAIL))
+            say("B1_uv", scene=label, bounce=b, tex_out=tex_out,
+                rays=n_live, sphere_winners=int(sph.sum()),
+                textured_sphere_winners=int(
+                    (sph & (mpair[k1p["mid"].long(), 0] > 0.5)).sum()),
+                mismatches=mism, ulp_ties=ties, max_abs_err=f"{err:.3g}",
+                ms=f"{ms:.4f}", ms_without_uv=f"{ms_old:.4f}",
+                device_ms=device_ms(lambda: fh("auto"), 20, "first_hits"),
+                device_ms_without_uv=device_ms(lambda: fh("auto", uv=False),
+                                               20, "first_hits"),
+                plain_ms=f"{pms:.4f}", bound2_ms=f"{b2ms:.4f}", bound_by=by)
+            if tex_out == 1:
+                stats["first_hits_uv"].append(Rec(err, ms, pms, b2ms, by))
+        k1p = kintersect.first_hits(
+            scene, state["o"], state["d"], state["time"], live, 1e-5, 2,
+            kernels="off", tables=itab, slim=True, sphere_tex=stex)
+        nxt = None
+        for compat in ("reference", "physical"):
+            cfg = RenderConfig(compat=compat)
+            shadows = integrator._shadow_factors_all(
+                scene, cfg, k1p["p"], state["time"], bkeys,
+                live & (k1p["j"] >= 0), tables)
+            for rec_out in (False, True):
+                def sh(mode, st, sc=scene):
+                    return kshade.shade_scatter(
+                        sc, cfg, st, bkeys, k1p, BOUNCES - b,
+                        shadows=shadows, use_pair=True, kernels=mode,
+                        tables=stab, quad=itab[1], rec_out=rec_out,
+                        mat_pair=mpair)
+
+                def fresh():
+                    return integrator.copy_state(state)
+
+                got, want = sh("auto", fresh()), sh("off", fresh())
+                if rec_out:
+                    got, want = (dict(got[0], rec=got[1]),
+                                 dict(want[0], rec=want[1]))
+                mism, err = compare(got, want)
+                check(f"shade_scatter {label} b{b} {compat} sky "
+                      f"rec_out={rec_out}", mism, err)
+                miss = live & (k1p["j"] < 0)
+                ms = timed_fresh(lambda st: sh("auto", st), fresh, 20)
+                ms_old = timed_fresh(lambda st: sh("auto", st, no_sky),
+                                     fresh, 20)
+                pms = timed_fresh(lambda st: sh("off", st), fresh, 3)
+                hits = live & (k1p["j"] >= 0)
+                nb = (shade_bytes_new(live, hits, True, False, L)
+                      + 4 * int(miss.sum()) + nbytes(stab[:2], mpair)
+                      + (32 * n_live if rec_out else 0))
+                b2ms, by = bound2(nb, n_live * (OPS_SHADE + L * OPS_LIGHT))
+                say("B2_sky", scene=label, bounce=b, compat=compat,
+                    rec_out=rec_out, active=n_live,
+                    miss_share=f"{int(miss.sum()) / live.numel():.3f}",
+                    mismatches=mism, max_abs_err=f"{err:.3g}",
+                    ms=f"{ms:.4f}", ms_without_sky=f"{ms_old:.4f}",
+                    device_ms=device_ms_fresh(lambda st: sh("auto", st),
+                                              fresh, 20, "shade_scatter"),
+                    device_ms_without_sky=device_ms_fresh(
+                        lambda st: sh("auto", st, no_sky), fresh, 20,
+                        "shade_scatter"),
+                    plain_ms=f"{pms:.4f}", bound2_ms=f"{b2ms:.4f}",
+                    bound_by=by)
+                if not rec_out:
+                    stats["shade_scatter_sky"].append(
+                        Rec(err, ms, pms, b2ms, by))
+                if compat == "reference" and not rec_out:
+                    nxt = want
+        state = nxt
+
+
+def general_protocol_phase(label, sb, spp, trainable, reps=3):
+    """fwd+bwd of the protocol loss on a scene outside the hand-written
+    class (lights, meshes, an image sky, textured spheres): the record
+    forward on the kernels, then the general backward (the replay's vjp
+    by torch.autograd, one sample at a time) and the texel fold. Prints
+    the step's wall time (median of `reps` after a warm-up, and the
+    spread), the peak memory, the launch counts (B3 is 0: no hand-written
+    sweep here; B4 once a sample when tex_data trains, its stream holding
+    every bounce, the last one too, on a lit scene), and the 1-spp
+    gradients against the same backward on the plain path."""
+    scene = compile_scene(sb, device=DEV)
+    if replay_bwd.hand_bwd_ok(scene, RenderConfig()):
+        raise AssertionError(f"{label}: inside the hand-written class")
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(max_bounces=BOUNCES)
+    segs = []
+    fold = kfold.fold_updates
+
+    def spy(data_g, idxs, gs, kernels="auto"):
+        segs.append(len(idxs))
+        return fold(data_g, idxs, gs, kernels)
+
+    kfold.fold_updates = spy
+    try:
+        protocol_grads(scene, cam, cfg, spp, trainable)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for r in range(reps):
+            if r == 0:
+                reset_launches()
+                segs.clear()
+            t0 = time.perf_counter()
+            loss, grads = protocol_grads(scene, cam, cfg, spp, trainable)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if r == 0:
+                launches = launch_counts(*KERNEL_MODULES)
+                fold_segs = sorted(set(segs))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        kfold.fold_updates = fold
+    lit = scene.light_pos.shape[0] > 0
+    meshes = scene.mesh_mat.shape[0] > 0
+    texels = "tex_data" in trainable and scene.tex_data.shape[0] > 1
+    expect = dict(first_hits=spp * BOUNCES, shade_scatter=spp * BOUNCES,
+                  bounce_bwd=0, sorted_fold=spp if texels else 0,
+                  traverse=spp * BOUNCES if meshes else 0,
+                  shadow=spp * BOUNCES if lit else 0)
+    if launches != expect:
+        raise AssertionError(f"general protocol {label}: launches "
+                             f"{launches}, expected {expect}")
+    if texels and fold_segs != [BOUNCES if (
+            lit or scene.emissive_tex_image) else BOUNCES - 1]:
+        raise AssertionError(f"general protocol {label}: fold segments "
+                             f"{fold_segs}")
+    for k, gr in grads.items():
+        if not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"general protocol {label}: {k} grad not "
+                                 f"finite")
+        if float(gr.abs().max()) == 0.0:
+            raise AssertionError(f"general protocol {label}: {k} grad is "
+                                 f"zero")
+    _, gk = protocol_grads(scene, cam, cfg, 1, trainable)
+    _, gp = protocol_grads(scene, cam, dataclasses.replace(cfg,
+                                                           kernels="off"),
+                           1, trainable)
+    rel = {}
+    for k in trainable:
+        scale = float(gp[k].abs().max())
+        diff = float((gk[k] - gp[k]).abs().max())
+        rel[k] = diff / scale if scale > 0 else diff
+        if rel[k] > GRAD_RTOL:
+            raise AssertionError(f"general protocol {label}: {k} 1-spp "
+                                 f"grad rel err {rel[k]:.3g} > {GRAD_RTOL}")
+    walls.sort()
+    say("general_protocol", scene=label, size=f"{W}x{H}", spp=spp,
+        bounces=BOUNCES, trainable="+".join(trainable),
+        loss=f"{float(loss):.6g}",
+        step_s_median=f"{walls[len(walls) // 2]:.4f}",
+        step_s_min=f"{walls[0]:.4f}", step_s_max=f"{walls[-1]:.4f}",
+        reps=reps, peak_mem_gb=f"{peak / 1e9:.3f}", launches=launches,
+        fold_segments=fold_segs,
+        grad_max_abs={k: f"{float(v.abs().max()):.3g}"
+                      for k, v in grads.items()},
+        grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
 
 
 def lanes_phase_inputs(scene, tables):
@@ -1384,7 +1633,8 @@ def main():
     for k, v in ptxas_report(_build.PTXAS_INFO).items():
         say("ptxas", kernel=k, use=v)
 
-    stats = {k: [] for k in KERNEL_MODULES}
+    stats = {k: [] for k in (*KERNEL_MODULES, "first_hits_uv",
+                             "shade_scatter_sky")}
     launches = {}
     flat_sb = zoo.setup_cornell_box(W / H)
     pair_sb = fill_cornell_textures(zoo.setup_cornell_box(W / H), FULL)
@@ -1454,6 +1704,24 @@ def main():
     limits_phase("mesh_grid_17", mesh_grid(zoo.SceneBuilder(), 17, 1_000),
                  (sh, sh, sh))
 
+    # every zoo scene and its gradient: the image sky in B2, the
+    # sphere-UV index in B1, the exact atlas (the general route) and the
+    # general backward
+    rtw_sb = rt_weekend_standin(zoo)
+    rtw = compile_scene(rtw_sb, device=DEV)
+    sky_uv_phase("rt_weekend_standin", rtw, stats)
+    render_phase("rt_weekend_standin", rtw_sb, SPP, plain_frame=False)
+    render_phase("raccoon_standin", raccoon_standin(zoo), SPP,
+                 plain_frame=False)
+    render_phase("cornell_textured_exact_atlas", pair_sb, PAIR_SPP,
+                 packed_atlas="off")
+    general_protocol_phase("rt_weekend_standin", rtw_sb, SPP,
+                           ("mat_diffuse", "sph_center", "tex_data"))
+    profile_phase("rt_weekend_standin", rtw_sb,
+                  trainable=("mat_diffuse", "sph_center", "tex_data"))
+    general_protocol_phase("flamingo_standin", flam_sb, SPP,
+                           ("mesh_verts", "mat_diffuse", "sph_center"))
+
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,
     # B5 flamingo_standin bounce 1, B6 flamingo_standin bounce 0
@@ -1476,6 +1744,10 @@ def main():
              "tracer/kernels/shadow.py:466", 4)):
         recs = stats[kname]
         rec = recs[pick]
+        # the sphere-UV and image-sky variants are held the same way
+        recs = recs + stats.get(dict(first_hits="first_hits_uv",
+                                     shade_scatter="shade_scatter_sky"
+                                     ).get(kname, ""), [])
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": launches[kname],
                      "max_abs_err": max(r.err for r in recs), "ms": rec.ms,

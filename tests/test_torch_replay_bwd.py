@@ -151,7 +151,7 @@ def test_bounce_bwd_matches_jax(phase1, compat, last, has_pair):
     keys = trng.ray_keys(9, torch.arange(N_LANES))
     _, recs, states = tintegrator._trace_loop(
         ts, cfg, o, d, tm, keys, tintegrator.prepare(ts), with_rec=True)
-    st10, (reci, recf) = states[b], recs[b]
+    st10, (reci, recf, _) = states[b], recs[b]
     if not has_pair:   # what the record holds for a scene without atlas
         recf = torch.zeros_like(recf)
     rs = np.random.RandomState(7)
@@ -310,22 +310,49 @@ def test_gate_matches_jax_on_the_zoo(name):
 
 
 def test_outside_the_gate_raises(phase1):
-    """An emissive TEX_IMAGE material (outside the hand-written backward's
-    class) and custom_vjp='off' raise NotImplementedError naming ROADMAP."""
+    """An emissive TEX_IMAGE material puts the scene outside the
+    hand-written backward's class: its gradient (the general backward,
+    which also folds the last bounce's texels) matches `jax.vjp` leaf by
+    leaf. custom_vjp='off' (the plain autodiff backward) still raises
+    NotImplementedError naming ROADMAP. (The name is kept from when both
+    raised.)"""
     sb = phase1_builder()
     m = sb.squares[0].material
     m.emissive = True
     m.light_intensity = 1.0
-    ts = port_scene(jcompile(sb))
+    sb.dark_sky = False
+    js = jcompile(sb)
+    ts = port_scene(js)
     assert ts.emissive_tex_image and not trb.hand_bwd_ok(ts, TConfig())
-    o, d, tm = rays(8, seed=1)
-    keys = trng.ray_keys(0, torch.arange(8))
-    diff = ts.mat_diffuse.clone().requires_grad_(True)
-    s2 = dataclasses.replace(ts, mat_diffuse=diff)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tintegrator.trace(s2, TConfig(), o, d, tm, keys)
-    out = tintegrator.trace(ts, TConfig(), o, d, tm, keys)   # no grad: fine
-    assert out.shape == (8, 3)
+    n, B = 32, 3
+    o, d, tm = rays(n, seed=1)
+    keys = trng.ray_keys(0, torch.arange(n))
+    g = np.random.RandomState(2).normal(size=(n, 3)).astype(np.float32)
+    fields = ("mat_diffuse", "tex_data", "nm_data", "quad_v0")
+    jcfg = JConfig(max_bounces=B, kernels="off")
+    jkeys = jrng.ray_keys(jax.random.key(0), jnp.arange(n, dtype=jnp.int32))
+    jo = jnp.asarray(np.stack([c.numpy() for c in o], -1))
+    jd = jnp.asarray(np.stack([c.numpy() for c in d], -1))
+
+    def f(*params):
+        s2 = dataclasses.replace(js, **dict(zip(fields, params)))
+        return jintegrator.trace(s2, jcfg, jo, jd, jnp.asarray(tm.numpy()),
+                                 jkeys)
+
+    with jax.disable_jit():
+        _, vjp = jax.vjp(f, *(getattr(js, k) for k in fields))
+        want = vjp(jnp.asarray(g))
+    leaves = {k: getattr(ts, k).clone().requires_grad_(True) for k in fields}
+    out = tintegrator.trace(dataclasses.replace(ts, **leaves),
+                            TConfig(max_bounces=B), o, d, tm, keys)
+    out.backward(torch.from_numpy(g))
+    for k, w in zip(fields, want):
+        w = np.asarray(w)
+        got = leaves[k].grad.numpy()
+        assert np.isfinite(got).all(), k
+        np.testing.assert_allclose(got, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=k)
+    assert np.abs(leaves["tex_data"].grad.numpy()).max() > 0.0
     _, ts1 = phase1
     s3 = dataclasses.replace(
         ts1, mat_diffuse=ts1.mat_diffuse.clone().requires_grad_(True))

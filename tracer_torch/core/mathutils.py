@@ -1,5 +1,5 @@
 """Shading math (the port of `tracer/core/mathutils.py`); only what the
-forward slice uses."""
+port uses."""
 
 from __future__ import annotations
 
@@ -9,3 +9,13 @@ import torch
 def gamma_correct(color):
     """Per-channel 1/2.2 gamma (reference: Functions.cpp:56-60)."""
     return torch.pow(torch.clamp_min(color, 0.0), 1.0 / 2.2)
+
+
+def schlick_reflectance(cosine, ref_idx):
+    """Schlick's approximation (reference: Functions.cpp:49-54), pow(m, 5)
+    as explicit multiplies (the kernels' form)."""
+    r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = r0 * r0
+    m = torch.clamp_min(1.0 - cosine, 0.0)
+    m2 = m * m
+    return r0 + (1.0 - r0) * (m2 * m2 * m)

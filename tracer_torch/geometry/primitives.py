@@ -340,3 +340,14 @@ def triangle_hit_detail(o, d, a, b, c):
     w1 = sign * (d11 * d20 - d01 * d21) / denom
     w2 = sign * (d00 * d21 - d01 * d20) / denom
     return p, n, 1.0 - w1 - w2, w1, w2
+
+
+def sphere_angles(n):
+    """(theta, phi) of a sphere's unit normal n (Sphere.h:130), the sphere's
+    texture coordinates before scaling: theta = acos(clip(-n_y, -1 + 1e-7,
+    1 - 1e-7)), phi = atan2(-n_z, n_x + 1e-20) + pi, in f32 constants
+    (`primitives.sphere_hit_detail_planar`)."""
+    from tracer_torch.render.shading import ACOS_HI, ACOS_LO, PI
+    theta = torch.acos(torch.clamp(-n[1], ACOS_LO, ACOS_HI))
+    phi = torch.atan2(-n[2], n[0] + 1e-20) + PI
+    return theta, phi

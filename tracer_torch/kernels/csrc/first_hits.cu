@@ -55,6 +55,16 @@
 //   beyond the block's 227 KB are read through L2 (__ldg) by the kernel's
 //   second instance.
 //
+// Textured spheres (sphere_uv, with tex_out >= 1): a sphere winner gets
+// the texture coordinates of Sphere.h:130, u = phi / (2 pi), v = theta / pi
+// with theta = acos(clip(-n_y, -1 + 1e-7, 1 - 1e-7)) and phi = atan2(-n_z,
+// n_x + 1e-20) + pi, and the texel fields of a quad winner from its
+// material's row of sph_tex [S, 15] (the quad table's columns 32-46, in
+// that order; tracer_torch/kernels/intersect.py::sphere_tex_table), read
+// once per sphere winner through the read-only cache. The JAX package
+// computes these in XLA after its kernel (tracer/render/integrator.py:
+// 804-850), since Mosaic has no acos or atan2.
+//
 // Meshes (after the spheres and quads, in mesh order): the BVH walk's
 // closest raw hit t_mesh[m] is a candidate when >= eps (Scene.h:224), and
 // a mesh winner's triangle tri_mesh[m] comes out as tid. A mesh winner's p
@@ -71,7 +81,8 @@
 //     45 nm_w, 46 nm_h (the true-atlas dims, read with tex_out=2)
 // Outputs: out_i [5, n] = j, tid, mid, row, sub, and with tex_out=2
 //            [7, n] = ... idx_t, idx_n (true atlas indices, the record
-//            forward's texel-cotangent fold; 0 unless a quad wins);
+//            forward's texel-cotangent fold; 0 unless a quad wins, or
+//            with sphere_uv a sphere);
 //          out_f [8, n] = p(3), n(3), u, v (live lanes only).
 // Mesh inputs: t_mesh [Nm, n] f32, tri_mesh [Nm, n] i32, mesh_mid [Nm] f32
 // (the meshes' material ids), pack [T, 24] (intersect.py::mesh_tables).
@@ -91,13 +102,14 @@ struct FirstHitsArgs {
   const float* t_mesh;
   const int* tri_mesh;
   const float *mesh_mid, *pack;
+  const float* sph_tex;  // textured spheres: [S, 15] texel columns
   int* out_i;
   float* out_f;
   int n, S, S_real, Q, Q_real, n_meshes, T, tex_out, p_tex, p_nm;
   float eps;
-  // Room for the inputs not ported yet (ROADMAP Queue B, "Kernel inputs
-  // not ported yet"): the sphere-UV texel index and the exact-atlas
-  // variant. The launcher refuses either flag set.
+  // sphere_uv: the sphere-UV texel index (needs tex_out >= 1 and sph_tex).
+  // exact_atlas: room for an exact-atlas variant, which the JAX package
+  // does not run either (ROADMAP Queue A); the launcher refuses it.
   int sphere_uv, exact_atlas;
   // written by the launcher: persistent blocks, tables in shared memory
   int blocks, shared_tables;
@@ -112,6 +124,14 @@ constexpr int QUAD_COLS = 47;
 constexpr int SPH_PAD = 12;   // a sphere row in shared memory: 3 float4s
 constexpr int QUAD_PAD = 48;  // a quad row in shared memory: 12 float4s
 constexpr float INF = 3.0e38f;
+constexpr int SPH_TEX_COLS = 15;
+// f32 constants of the sphere-UV index (tracer_torch/render/shading.py):
+// 1/(2 pi) and 1/pi as f32 reciprocals, pi, and the clip of -n_y
+constexpr float INV_2PI = 0x1.45f306p-3f;
+constexpr float INV_PI = 0x1.45f306p-2f;
+constexpr float PI_F = 0x1.921fb6p+1f;
+constexpr float ACOS_LO = -0x1.fffffcp-1f;
+constexpr float ACOS_HI = 0x1.fffffcp-1f;
 
 // A table row: in shared memory (padded to whole float4s, read four
 // columns to a load), or in the global table through the read-only cache.
@@ -154,6 +174,35 @@ __device__ __forceinline__ void staircase(float u, float v, float sx, float sy,
   int hi = (int)hf;
   *x = min(max(xi, 0), max(wi - 1, 0));
   *y = min(max(yi, 0), max(hi - 1, 0));
+}
+
+// The texel fields of a textured winner from its 15 texel columns c(k)
+// (the quad table's 32 + k, or the sphere's sph_tex row): the pair-atlas
+// index rel = (ya+yb)*wc + xa+xb as (row, sub) (integrator use_pair) and,
+// with tex_out >= 2, the true atlas indices: the same staircase on the
+// texture's and the normal map's own dims, clipped to the atlas.
+template <typename Col>
+__device__ __forceinline__ void texel_fields(const FirstHitsArgs& a, Col c,
+                                             float u, float v, int* row,
+                                             int* sub, int* idx_t,
+                                             int* idx_n) {
+  const float sx = c(0), sy = c(1);
+  const float wa = c(2), wb = c(4);
+  int xa, ya, xb, yb;
+  staircase(u, v, sx, sy, wa, c(3), &xa, &ya);
+  staircase(u, v, sx, sy, wb, c(5), &xb, &yb);
+  const int wc = (int)wa + max((int)wb - 1, 0);
+  const int rel = (ya + yb) * wc + xa + xb;
+  *row = (int)c(6) + (rel >> 4);
+  *sub = rel & 15;
+  if (a.tex_out >= 2) {
+    int xt, yt, xn, yn;
+    const float tw = c(10), nw = c(13);
+    staircase(u, v, sx, sy, tw, c(11), &xt, &yt);
+    *idx_t = tt::clampi((int)c(9) + yt * (int)tw + xt, 0, a.p_tex - 1);
+    staircase(u, v, sx, sy, nw, c(14), &xn, &yn);
+    *idx_n = tt::clampi((int)c(12) + yn * (int)nw + xn, 0, a.p_nm - 1);
+  }
 }
 
 // The integer fields of a lane that is not live.
@@ -326,30 +375,9 @@ __device__ __forceinline__ void hit_lane(const FirstHitsArgs& a,
          tt::maxf(ex * ex + ey * ey + ez * ez, 1e-30f);
     vq = (qx * ux + qy * uy + qz * uz) /
          tt::maxf(ux * ux + uy * uy + uz * uz, 1e-30f);
-    if (a.tex_out) {
-      const float sx = qr.f(32), sy = qr.f(33);
-      const float wa = qr.f(34), wb = qr.f(36);
-      // pair-atlas index: rel = (ya+yb)*wc + xa+xb (integrator use_pair)
-      int xa, ya, xb, yb;
-      staircase(uq, vq, sx, sy, wa, qr.f(35), &xa, &ya);
-      staircase(uq, vq, sx, sy, wb, qr.f(37), &xb, &yb);
-      const int wc = (int)wa + max((int)wb - 1, 0);
-      const int rel = (ya + yb) * wc + xa + xb;
-      row = (int)qr.f(38) + (rel >> 4);
-      sub = rel & 15;
-      if (a.tex_out >= 2) {
-        // true atlas indices: the same staircase on the texture's and the
-        // normal map's own dims, clipped to the atlas
-        int xt, yt, xn, yn;
-        const float tw = qr.f(42), nw = qr.f(45);
-        staircase(uq, vq, sx, sy, tw, qr.f(43), &xt, &yt);
-        idx_t = tt::clampi((int)qr.f(41) + yt * (int)tw + xt, 0,
-                           a.p_tex - 1);
-        staircase(uq, vq, sx, sy, nw, qr.f(46), &xn, &yn);
-        idx_n = tt::clampi((int)qr.f(44) + yn * (int)nw + xn, 0,
-                           a.p_nm - 1);
-      }
-    }
+    if (a.tex_out)
+      texel_fields(a, [&](int k) { return qr.f(32 + k); }, uq, vq, &row,
+                   &sub, &idx_t, &idx_n);
   } else if (j >= a.S + a.Q) {  // a mesh winner: its triangle's hit detail
     midf = a.mesh_mid[j - a.S - a.Q];
     const tt::TriDetail td = tt::triangle_detail(
@@ -387,6 +415,17 @@ __device__ __forceinline__ void hit_lane(const FirstHitsArgs& a,
     nx = nsx0 * inv;
     ny = nsy0 * inv;
     nz = nsz0 * inv;
+    if (a.sphere_uv && j >= 0) {  // Sphere.h:130; clamp keeps a NaN
+      const float my = -ny;
+      const float cy = my < ACOS_LO ? ACOS_LO : (my > ACOS_HI ? ACOS_HI : my);
+      const float theta = acosf(cy);
+      const float phi = atan2f(-nz, nx + 1e-20f) + PI_F;
+      uq = phi * INV_2PI;
+      vq = theta * INV_PI;
+      const float* sr = a.sph_tex + (size_t)j * SPH_TEX_COLS;
+      texel_fields(a, [&](int k) { return __ldg(sr + k); }, uq, vq, &row,
+                   &sub, &idx_t, &idx_n);
+    }
   }
 
   int* oi = a.out_i + i;
@@ -452,7 +491,8 @@ tt::SharedFit g_fit;
 
 extern "C" int tt_first_hits(FirstHitsArgs* args, void* stream) {
   FirstHitsArgs& a = *args;
-  if (a.sphere_uv || a.exact_atlas) return (int)cudaErrorNotSupported;
+  if (a.exact_atlas || (a.sphere_uv && (!a.tex_out || !a.sph_tex)))
+    return (int)cudaErrorNotSupported;
   const size_t tables =
       sizeof(float) * (size_t)(a.S_real * SPH_PAD + a.Q_real * QUAD_PAD);
   const tt::SharedFit& fit =

@@ -47,6 +47,20 @@
 // the raw normal-map texel rnm(3), ptex and pnm of every active lane, 0
 // on the others.
 //
+// Image skies (has_sky): a miss lane's sky is the equirect texel of its
+// direction, u = 0.5 + atan2(d_z, d_x) / (2 pi), v = 0.5 - asin(clip(d_y,
+// -1, 1)) / pi, x = int(u * W), y = int(v * H) (each clipped), the packed
+// word sky[y * W + x] (scene.sky_pack) decoded and, under compat=
+// reference, scaled by NRemainingBounces (not + 1: Scene.h:155-160). The
+// JAX package computes it for every lane in XLA and hands it in
+// (tracer/kernels/shade.py:115-116, 167-177); here only miss lanes do,
+// with no glue launch.
+//
+// Textured spheres (sphere_uv): a sphere winner's ptex and pnm are its
+// material's pair-atlas masks, mat_pair [M, 2] (shade.py::mat_pair_table),
+// as the JAX package's sphere-UV splice gives them; its row and sub come
+// from the first-hit kernel's sphere-UV index.
+//
 // Mesh winners (j >= S + Q, mesh scenes): p and n come from the first-hit
 // record, which holds their triangle hit detail; the diffuse color is the
 // corner colors of the pack row of tid (intersect.py::mesh_tables)
@@ -78,16 +92,18 @@ struct ShadeIO {
   float* rec;
   const int* tid;     // mesh scenes: the winning triangle
   const float* pack;  // mesh scenes: [T, 24] mesh pack
-  // Room for the inputs not ported yet (ROADMAP Queue B, "Kernel inputs
-  // not ported yet"): the equirect sky image and the exact atlas.
-  const float *sky, *tex_data, *nm_data;
+  const int* sky;         // image skies: packed words [sky_n rounded up]
+  const float* mat_pair;  // textured spheres: [M, 2] ptex, pnm
+  // room for an exact-atlas variant (refused: ROADMAP Queue A)
+  const float *tex_data, *nm_data;
 };
 
 // Mirror of _Params in tracer_torch/kernels/shade.py (same order).
 struct ShadeParams {
   int n, M, Rp, L, S, Q, ref, has_pair, last, rec_out, n_meshes, T;
-  // reserved with the inputs above; the launcher refuses either flag set
-  int has_sky, exact_atlas;
+  // has_sky: the image sky (sky, sky_w x sky_h, sky_n texels); sphere_uv:
+  // the sphere winners' masks from mat_pair; exact_atlas is refused
+  int has_sky, exact_atlas, sphere_uv, sky_w, sky_h, sky_n;
   float eps, n_rem, dark;
   // written by the launcher: persistent blocks, tables in shared memory
   int blocks, shared_tables;
@@ -106,6 +122,9 @@ constexpr int MIRROR = 2;
 constexpr int TEX_NONE = 0;
 constexpr int TEX_CHECKERBOARD = 1;
 constexpr int TEX_IMAGE = 2;
+// 1/(2 pi) and 1/pi as f32 reciprocals (tracer_torch/render/shading.py)
+constexpr float INV_2PI = 0x1.45f306p-3f;
+constexpr float INV_PI = 0x1.45f306p-2f;
 
 // packed 0xRRGGBB word -> rgb, byte * f32(1/255)
 __device__ __forceinline__ void decode(int w, float* r, float* g, float* b) {
@@ -113,6 +132,26 @@ __device__ __forceinline__ void decode(int w, float* r, float* g, float* b) {
   *r = (float)((w >> 16) & 0xFF) * k;
   *g = (float)((w >> 8) & 0xFF) * k;
   *b = (float)(w & 0xFF) * k;
+}
+
+// A miss lane's image sky (shading.py::sky_texel_index + the packed word);
+// the clamp of d_y keeps a NaN, as torch.clamp does.
+__device__ __forceinline__ void sky_image(const ShadeIO& io,
+                                          const ShadeParams& p, float dx,
+                                          float dy, float dz, float* r,
+                                          float* g, float* b) {
+  const float u = 0.5f + atan2f(dz, dx) * INV_2PI;
+  const float cy = dy < -1.0f ? -1.0f : (dy > 1.0f ? 1.0f : dy);
+  const float v = 0.5f - asinf(cy) * INV_PI;
+  const int x = tt::clampi((int)(u * (float)p.sky_w), 0, p.sky_w - 1);
+  const int y = tt::clampi((int)(v * (float)p.sky_h), 0, p.sky_h - 1);
+  const int idx = tt::clampi(y * p.sky_w + x, 0, p.sky_n - 1);
+  decode(__ldg(io.sky + idx), r, g, b);
+  if (p.ref) {
+    *r = p.n_rem * *r;
+    *g = p.n_rem * *g;
+    *b = p.n_rem * *b;
+  }
 }
 
 // The tables a lane reads: in shared memory, or the global ones (the
@@ -163,9 +202,12 @@ __device__ __forceinline__ void shade_lane(const ShadeIO& io,
   const float thx = io.thx[i], thy = io.thy[i], thz = io.thz[i];
   const float u = io.u[i], v = io.v[i];
 
-  // ---- sky on miss (procedural skybox) ---------------------------------
+  // ---- sky on miss -------------------------------------------------------
   float skx, sky, skz;
-  {
+  if (p.has_sky) {
+    skx = sky = skz = 0.0f;
+    if (miss) sky_image(io, p, dx, dy, dz, &skx, &sky, &skz);
+  } else {
     float a = 0.5f * (dy + 1.0f);
     float scale = ref ? p.n_rem + 1.0f : 1.0f;
     float w = 1.0f - a;
@@ -187,10 +229,15 @@ __device__ __forceinline__ void shade_lane(const ShadeIO& io,
   const float use_nmf = tb.m(mr, 17), sx = tb.m(mr, 18), sy = tb.m(mr, 19);
   const float px = io.px[i], py = io.py[i], pz = io.pz[i];
   float nx = io.nx[i], ny = io.ny[i], nz = io.nz[i];
-  // the winning quad's atlas masks (0 unless a quad wins)
+  // the winning quad's atlas masks (0 unless a quad wins, or with
+  // sphere_uv a sphere: its material's)
   const int fq = live && is_quad ? j - p.S : -1;
-  const float ptex = fq >= 0 ? tb.f(fq, 6) : 0.0f;
-  const float pnm = fq >= 0 ? tb.f(fq, 7) : 0.0f;
+  float ptex = fq >= 0 ? tb.f(fq, 6) : 0.0f;
+  float pnm = fq >= 0 ? tb.f(fq, 7) : 0.0f;
+  if (p.sphere_uv && live && j < p.S) {
+    ptex = __ldg(io.mat_pair + 2 * mr);
+    pnm = __ldg(io.mat_pair + 2 * mr + 1);
+  }
 
   // ---- texturing --------------------------------------------------------
   const bool same = tt::trunc_mod2(u * sx) == tt::trunc_mod2(v * sy);
@@ -403,7 +450,9 @@ tt::SharedFit g_fit;
 extern "C" int tt_shade_scatter(const ShadeIO* io, ShadeParams* prm,
                                 void* stream) {
   ShadeParams& p = *prm;
-  if (p.has_sky || p.exact_atlas) return (int)cudaErrorNotSupported;
+  if (p.exact_atlas || (p.has_sky && !io->sky) ||
+      (p.sphere_uv && (!io->mat_pair || !p.has_pair)))
+    return (int)cudaErrorNotSupported;
   const size_t tables =
       sizeof(float) * (size_t)(p.M * MAT_COLS + p.L * 6 + p.Q * FRAME_COLS);
   const tt::SharedFit& fit =

@@ -42,6 +42,14 @@ Semantics (mirrored from the TPU kernel):
 - `tex_out=2` (the record forward of the backward) also adds the true
   atlas indices (idx_t, idx_n) of the nearest texel in `tex_data` and
   `nm_data`, clipped to the atlas, for quad winners; other lanes get 0;
+- with `sphere_tex` (`sphere_tex_table`: scenes with textured spheres,
+  `tex_out >= 1`) a sphere winner gets its texture coordinates u =
+  phi/(2 pi), v = theta/pi (Sphere.h:130; theta = acos(clip(-n_y, -1 +
+  1e-7, 1 - 1e-7)), phi = atan2(-n_z, n_x + 1e-20) + pi) and, from its
+  material's row of that table, the texel fields a quad winner gets from
+  its quad row. The JAX package computes these in XLA after its kernel
+  (`tracer/render/integrator.py:804-850`), for want of acos and atan2 in
+  Mosaic; CUDA has both;
 - lanes with `live` false: j = tid = -1, mid = row = sub (= idx_t =
   idx_n) = 0, and tan = bitan = ptex = pnm = 0 in the full dict. Their
   p, n, u and v are unspecified: the kernel does not write them (no
@@ -115,6 +123,30 @@ def intersect_tables(scene):
     return sph.contiguous(), quad.contiguous()
 
 
+SPHERE_TEX_COLS = 15
+
+
+def sphere_tex_table(scene):
+    """[S, 15] f32: the texel columns of each sphere's material, in the
+    order of the quad table's columns 32-46 (sx, sy, pair_wa, pair_ha,
+    pair_wb, pair_hb, pair_off, pair_tex, pair_nm, tex_off, tex_w, tex_h,
+    nm_off, nm_w, nm_h): what `first_hits(sphere_tex=...)` reads for a
+    sphere winner."""
+    def f(a):
+        return a.to(torch.float32)[:, None]
+
+    m = scene.sph_mat.long()
+    tex, nm = scene.mat_tex[m].long(), scene.mat_nm[m].long()
+    return torch.cat([
+        scene.mat_texscale[m], f(scene.mat_pair_wa[m]),
+        f(scene.mat_pair_ha[m]), f(scene.mat_pair_wb[m]),
+        f(scene.mat_pair_hb[m]), f(scene.mat_pair_off[m]),
+        f(scene.mat_pair_tex[m]), f(scene.mat_pair_nm[m]),
+        f(scene.tex_off[tex]), f(scene.tex_w[tex]), f(scene.tex_h[tex]),
+        f(scene.nm_off[nm]), f(scene.nm_w[nm]), f(scene.nm_h[nm])],
+        dim=1).contiguous()
+
+
 MESH_PACK_COLS = 24
 
 
@@ -148,7 +180,7 @@ def mesh_detail(pack, o, d, tid):
 
 def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
                kernels="auto", tables=None, t_mesh=None, tri_mesh=None,
-               mesh=None, slim=False):
+               mesh=None, slim=False, sphere_tex=None):
     """Closest hit + winner detail for planar rays.
 
     o, d: planar (x, y, z) of [N] f32; time [N] f32; live [N] bool.
@@ -161,7 +193,9 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
     (`SLIM_FIELDS`, and idx_t, idx_n): tan, bitan, ptex and pnm are the
     winning quad's table columns (`quad_fields`). What a lane that is not
     live holds: see the module docstring. `tables`: a precomputed
-    `intersect_tables(scene)`."""
+    `intersect_tables(scene)`. `sphere_tex`: `sphere_tex_table(scene)`
+    for the sphere-UV texel index (module docstring; with `tex_out >= 1`
+    only)."""
     if tex_out not in (0, 1, 2):
         raise ValueError(f"first_hits: tex_out must be 0, 1 or 2, got "
                          f"{tex_out!r}")
@@ -174,15 +208,17 @@ def first_hits(scene, o, d, time, live, eps=1e-5, tex_out=0,
                              "tri_mesh (traverse.mesh_closest_hits)")
         if mesh is None:
             mesh = mesh_tables(scene)
+    if sphere_tex is not None and not tex_out:
+        raise ValueError("first_hits: sphere_tex needs tex_out >= 1")
     if kc.use_kernel(kernels, o[0]):
         out = _first_hits_cuda(scene, o, d, time, live, eps, tex_out,
-                               tables, t_mesh, tri_mesh, mesh)
+                               tables, t_mesh, tri_mesh, mesh, sphere_tex)
         if not slim:
             out.update(quad_fields(tables[1], tables[0].shape[0], out["j"],
                                    tex_out))
         return out
     out = first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
-                           t_mesh, tri_mesh, mesh)
+                           t_mesh, tri_mesh, mesh, sphere_tex)
     if slim:
         for k in ("tan", "bitan", "ptex", "pnm"):
             del out[k]
@@ -221,7 +257,7 @@ def _unpack(out_i, out_f):
 
 
 def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
-                     t_mesh=None, tri_mesh=None, mesh=None):
+                     t_mesh=None, tri_mesh=None, mesh=None, sphere_tex=None):
     """The plain PyTorch version of the kernel, in the TPU kernel's SIMD
     form (a Python loop over the table rows; every candidate test and both
     a sphere's and a quad's detail on every lane, selected by where). The
@@ -304,30 +340,46 @@ def first_hits_plain(scene, o, d, time, live, eps, tex_out, tables,
         bitan=(quad_only(29), quad_only(30), quad_only(31)),
         ptex=zf, pnm=zf)
     if tex_out:
+        from tracer_torch.render import shading
+        uv = sphere_tex is not None and S > 0
+        if uv:   # a sphere winner's texture coordinates (Sphere.h:130)
+            theta, phi = prim.sphere_angles(ns)
+            out.update(u=torch.where(is_s, phi * shading.INV_2PI, uq),
+                       v=torch.where(is_s, theta * shading.INV_PI, vq))
+            srt = sphere_tex[torch.clamp(j, 0, S - 1).long()]
+        uu, vv = out["u"], out["v"]
+        tex_lane = (is_q | is_s) if uv else is_q
+
+        def tcol(c):   # quad column c, or its sphere-table twin
+            if uv:
+                return torch.where(is_q, qrow[:, c],
+                                   torch.where(is_s, srt[:, c - 32], 0.0))
+            return quad_only(c)
+
         # pair-atlas texel index: xa/ya from the primary dims, xb/yb the
         # product-region staircase; rel = (ya+yb)*wc + xa+xb
-        from tracer_torch.render.shading import texel_xy
-        sx, sy = quad_only(32), quad_only(33)
-        wa, ha = quad_only(34), quad_only(35)
-        wb, hb = quad_only(36), quad_only(37)
-        xa, ya = texel_xy(wa, ha, uq, vq, sx, sy)
-        xb, yb = texel_xy(wb, hb, uq, vq, sx, sy)
+        sx, sy = tcol(32), tcol(33)
+        wa, ha = tcol(34), tcol(35)
+        wb, hb = tcol(36), tcol(37)
+        xa, ya = shading.texel_xy(wa, ha, uu, vv, sx, sy)
+        xb, yb = shading.texel_xy(wb, hb, uu, vv, sx, sy)
         wc = wa.to(torch.int32) + torch.clamp_min(wb.to(torch.int32) - 1, 0)
         rel = (ya + yb) * wc + xa + xb
         out.update(
-            row=torch.where(is_q, quad_only(38).to(torch.int32) + (rel >> 4),
+            row=torch.where(tex_lane, tcol(38).to(torch.int32) + (rel >> 4),
                             zi),
-            sub=torch.where(is_q, rel & 15, zi),
-            ptex=quad_only(39), pnm=quad_only(40))
-    if tex_out >= 2:
-        # true atlas indices (the record's texel-cotangent fold)
-        for key, c, p_atlas in (("idx_t", 41, scene.tex_data.shape[0]),
-                                ("idx_n", 44, scene.nm_data.shape[0])):
-            xt, yt = texel_xy(quad_only(c + 1), quad_only(c + 2), uq, vq,
-                              sx, sy)
-            it = (quad_only(c).to(torch.int32)
-                  + yt * quad_only(c + 1).to(torch.int32) + xt)
-            out[key] = torch.where(is_q, torch.clamp(it, 0, p_atlas - 1), zi)
+            sub=torch.where(tex_lane, rel & 15, zi),
+            ptex=tcol(39), pnm=tcol(40))
+        if tex_out >= 2:
+            # true atlas indices (the record's texel-cotangent fold)
+            for key, c, p_atlas in (("idx_t", 41, scene.tex_data.shape[0]),
+                                    ("idx_n", 44, scene.nm_data.shape[0])):
+                xt, yt = shading.texel_xy(tcol(c + 1), tcol(c + 2), uu, vv,
+                                          sx, sy)
+                it = (tcol(c).to(torch.int32)
+                      + yt * tcol(c + 1).to(torch.int32) + xt)
+                out[key] = torch.where(tex_lane,
+                                       torch.clamp(it, 0, p_atlas - 1), zi)
 
     # defaults on lanes that are not live
     def dflt(x, v):
@@ -352,7 +404,8 @@ class _Args(ctypes.Structure):
     """Mirror of `FirstHitsArgs` in csrc/first_hits.cu (same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "live", "sph", "quad",
-        "t_mesh", "tri_mesh", "mesh_mid", "pack", "out_i", "out_f")] + [
+        "t_mesh", "tri_mesh", "mesh_mid", "pack", "sph_tex", "out_i",
+        "out_f")] + [
         (name, ctypes.c_int) for name in (
             "n", "S", "S_real", "Q", "Q_real", "n_meshes", "T", "tex_out",
             "p_tex", "p_nm")] + [("eps", ctypes.c_float)] + [
@@ -361,7 +414,7 @@ class _Args(ctypes.Structure):
 
 
 def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
-                     t_mesh=None, tri_mesh=None, mesh=None):
+                     t_mesh=None, tri_mesh=None, mesh=None, sphere_tex=None):
     from tracer_torch.kernels import _build
     global LAUNCHES, TABLES, BLOCKS
     sph, quad = tables
@@ -392,6 +445,10 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
                           (pack.shape[0], MESH_PACK_COLS), dev)
         a.T = pack.shape[0]
     a.n_meshes = Nm
+    if sphere_tex is not None and S > 0:
+        a.sph_tex = kc.check("sphere_tex", sphere_tex, f32,
+                             (S, SPHERE_TEX_COLS), dev)
+        a.sphere_uv = 1
     a.out_i, a.out_f = out_i.data_ptr(), out_f.data_ptr()
     a.n, a.S, a.S_real, a.Q, a.Q_real = N, S, S_real, Q, Q_real
     a.tex_out, a.eps = int(tex_out), float(eps)

@@ -29,6 +29,20 @@ bounces the dead lanes, which cost their active flag only. The material,
 light and per-quad tables sit in dynamic shared memory (or are read
 through L2 beyond a block's 227 KB: `TABLES`).
 
+Skies: on a miss the kernel takes the procedural sky or, with an image
+skybox, the equirect texel of the ray's direction (`shading.
+sky_texel_index`: atan2, asin, the texel index and the packed word's
+decode, scaled by NRemainingBounces under compat="reference"). The JAX
+package computes the image sky for every lane in XLA and hands it in
+(`tracer/kernels/shade.py:91,115-116,167-177`); here only miss lanes
+compute it, and no per-bounce glue runs.
+
+Textured spheres (`mat_pair`, `mat_pair_table`): a sphere winner's
+atlas masks ptex, pnm are its material's (`mat_pair_tex`,
+`mat_pair_nm`), as the JAX package's sphere-UV splice gives them
+(`tracer/render/integrator.py:833-834`); a quad winner's come from the
+quad table by j.
+
 An active lane adds its radiance to acc; before the last bounce a lane
 that hits writes its next o, d and throughput, a lane that misses clears
 its active flag; lanes that are not active are not touched. `last=True`
@@ -90,6 +104,14 @@ def _light_table(scene):
     return torch.zeros((1, 6), dtype=torch.float32, device=scene.device)
 
 
+def mat_pair_table(scene):
+    """[M, 2] f32: each material's pair-atlas masks (mat_pair_tex,
+    mat_pair_nm), read for sphere winners on scenes with textured
+    spheres."""
+    return torch.stack([scene.mat_pair_tex, scene.mat_pair_nm],
+                       dim=1).to(torch.float32).contiguous()
+
+
 def shade_tables(scene):
     """(material table, light table, dark_sky as a host float): what the
     shade pass reads besides the rays. Build it once per frame."""
@@ -99,7 +121,8 @@ def shade_tables(scene):
 
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
                   use_pair=False, last=False, kernels="auto", tables=None,
-                  rec_out=False, mesh=None, quad=None):
+                  rec_out=False, mesh=None, quad=None, mat_pair=None,
+                  sky_wh=None):
     """One bounce's shading and scatter over planar ray state, in place.
 
     state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
@@ -110,19 +133,22 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
     suffices). shadows: [L, N] f32 soft-shadow factors, or None when the
     scene has no lights. `mesh`: a precomputed `intersect.mesh_tables
     (scene)` (mesh scenes); `quad`: the first-hit quad table
-    (`intersect.intersect_tables(scene)[1]`). Returns `state`, or its acc
-    when `last`; with `rec_out` (which needs `use_pair`), the pair (that
-    result, rec [8, N])."""
+    (`intersect.intersect_tables(scene)[1]`). `mat_pair`: with `use_pair`
+    on scenes with textured spheres (k1 from `first_hits(sphere_tex=
+    ...)`), `mat_pair_table(scene)`. `sky_wh`: an image sky's (W, H) as
+    host ints (read from the scene's tensors if not given). Returns
+    `state`, or its acc when `last`; with `rec_out` (which needs
+    `use_pair`), the pair (that result, rec [8, N])."""
     if rec_out and not use_pair:
         raise ValueError("shade_scatter: rec_out needs use_pair")
+    if mat_pair is not None and not use_pair:
+        raise ValueError("shade_scatter: mat_pair needs use_pair")
     if scene.mesh_mat.shape[0] > 0 and mesh is None:
         mesh = kintersect.mesh_tables(scene)
-    if scene.has_sky_image:
-        raise NotImplementedError(
-            "shade_scatter: the image skybox is not ported yet "
-            "(ROADMAP.md Queue A, 'Sky image, sphere UV and exact atlas')")
     if tables is None:
         tables = shade_tables(scene)
+    if scene.has_sky_image and sky_wh is None:
+        sky_wh = int(scene.sky_w), int(scene.sky_h)
     if quad is None:
         quad = kintersect.intersect_tables(scene)[1]
     L = scene.light_pos.shape[0]
@@ -134,15 +160,15 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
     if kc.use_kernel(kernels, state["d"][0]):
         return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
                                    shadows, use_pair, last, tables, rec_out,
-                                   mesh, quad)
+                                   mesh, quad, mat_pair, sky_wh)
     return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
                                shadows, use_pair, last, tables, rec_out,
-                               mesh, quad)
+                               mesh, quad, mat_pair, sky_wh)
 
 
 def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
                         use_pair, last, tables, rec_out=False, mesh=None,
-                        quad=None):
+                        quad=None, mat_pair=None, sky_wh=None):
     """The plain PyTorch version of the kernel (planar 3-tuples): the
     bounce in `torch.where` form, then its results copied into the
     state's tensors, as the kernel writes them."""
@@ -160,8 +186,9 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     u, v = k1["u"], k1["v"]
     p, n = k1["p"], k1["n"]
 
-    # ---- sky on miss ----------------------------------------------------
-    sky = shading.skybox_color_p(scene, d, n_rem, ref)
+    # ---- sky on miss (image: the packed twin's word) --------------------
+    sky = shading.skybox_color_p(scene, d, n_rem, ref, packed=True,
+                                 sky_wh=sky_wh)
     amiss = active & miss
     acc = tuple(a + torch.where(amiss, t * c, 0.0)
                 for a, t, c in zip(state["acc"], th, sky))
@@ -184,12 +211,19 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
     img = shading.magenta_checker_p(u, v)
     if use_pair:   # the winning quad's frame and atlas masks, by j
         qf = kintersect.quad_fields(quad, S, k1["j"])
+        ptex, pnm = qf["ptex"], qf["pnm"]
+        if mat_pair is not None:   # a sphere winner's, by its material
+            is_sph = (k1["j"] >= 0) & (k1["j"] < S)
+            mp = mat_pair[torch.clamp(k1["mid"], 0,
+                                      mat_pair.shape[0] - 1).long()]
+            ptex = torch.where(is_sph, mp[:, 0], ptex)
+            pnm = torch.where(is_sph, mp[:, 1], pnm)
         prow = torch.clamp(k1["row"], 0, scene.pair_pack.shape[0] - 1).long()
         sub = k1["sub"].long()
         vt = scene.pair_pack[prow, sub]
         vn = scene.pair_pack[prow, shading.PACK_BLOCK + sub]
         img_t = shading.decode_word(vt)
-        img = vp.where(qf["ptex"] > 0.5, img_t, img)
+        img = vp.where(ptex > 0.5, img_t, img)
     is_check = textype == shading.TEX_CHECKERBOARD
     is_img = textype == shading.TEX_IMAGE
     dcol = vp.where(is_img, img, vp.where(is_check, checker, diffuse))
@@ -207,13 +241,12 @@ def shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem, shadows,
         rnm = shading.decode_word(vn)
         if rec_out:
             rec = torch.stack([torch.where(active, c, 0.0)
-                               for c in img_t + rnm
-                               + (qf["ptex"], qf["pnm"])])
+                               for c in img_t + rnm + (ptex, pnm)])
         nm = tuple(2.0 * c - 1.0 for c in rnm)
         tan, bitan = qf["tan"], qf["bitan"]
         n2 = vp.normalize(tuple(nm[0] * tan[a] + nm[1] * bitan[a]
                                 + nm[2] * n[a] for a in range(3)))
-        n = vp.where(is_quad & (qf["pnm"] > 0.5) & (use_nmf > 0.5), n2, n)
+        n = vp.where(is_quad & (pnm > 0.5) & (use_nmf > 0.5), n2, n)
     # ---- emission (spheres and squares only) ----------------------------
     ecol = vp.where(textype == shading.TEX_NONE, light_col,
                     vp.where(is_img, img,
@@ -291,8 +324,8 @@ _IO_FIELDS = (
     "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
     "ax", "ay", "az", "active", "key", "j", "px", "py", "pz",
     "nx", "ny", "nz", "u", "v", "mid", "row", "sub", "shadows", "mat",
-    "light", "quad", "pair", "rec", "tid", "pack", "sky", "tex_data",
-    "nm_data")
+    "light", "quad", "pair", "rec", "tid", "pack", "sky", "mat_pair",
+    "tex_data", "nm_data")
 
 
 class _IO(ctypes.Structure):
@@ -304,14 +337,15 @@ class _Params(ctypes.Structure):
     """Mirror of `ShadeParams` in csrc/shade_scatter.cu (same order)."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "M", "Rp", "L", "S", "Q", "ref", "has_pair", "last",
-        "rec_out", "n_meshes", "T", "has_sky", "exact_atlas")] + [
+        "rec_out", "n_meshes", "T", "has_sky", "exact_atlas", "sphere_uv",
+        "sky_w", "sky_h", "sky_n")] + [
         (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")] + [
         (name, ctypes.c_int) for name in ("blocks", "shared_tables")]
 
 
 def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                         use_pair, last, tables, rec_out=False, mesh=None,
-                        quad=None):
+                        quad=None, mat_pair=None, sky_wh=None):
     from tracer_torch.kernels import _build
     global LAUNCHES, TABLES, BLOCKS
     mat_tab, light_tab, dark = tables
@@ -351,6 +385,12 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
         io.tid = kc.check("tid", k1["tid"], i32, (N,), dev)
         io.pack = kc.check("pack", pack, f32,
                            (T, kintersect.MESH_PACK_COLS), dev)
+    has_sky = int(bool(scene.has_sky_image))
+    if has_sky:
+        io.sky = kc.check("sky_pack", scene.sky_pack, i32,
+                          (scene.sky_pack.shape[0], shading.PACK_BLOCK), dev)
+    if mat_pair is not None:
+        io.mat_pair = kc.check("mat_pair", mat_pair, f32, (M, 2), dev)
     rec = None
     if rec_out:
         rec = torch.empty((8, N), dtype=f32, device=dev)
@@ -359,6 +399,10 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                   ref=int(cfg.compat == "reference"),
                   has_pair=int(bool(use_pair)), last=int(bool(last)),
                   rec_out=int(bool(rec_out)), n_meshes=Nm, T=T,
+                  has_sky=has_sky, sphere_uv=int(mat_pair is not None),
+                  sky_w=sky_wh[0] if has_sky else 0,
+                  sky_h=sky_wh[1] if has_sky else 0,
+                  sky_n=scene.sky_data.shape[0],
                   eps=float(cfg.epsilon),
                   n_rem=float(n_rem), dark=dark)
     if N > 0:

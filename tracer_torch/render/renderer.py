@@ -53,7 +53,6 @@ def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
     nsamples for the mean radiance). Returns [N, 3] f32, differentiable
     with respect to the scene's and the camera's tensors that require grad
     (`integrator.trace`)."""
-    integrator.check_scene(scene, cfg)
     tables = integrator.prepare(scene)
     acc = torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,
                       device=pixel_ids.device)

@@ -35,12 +35,16 @@ from tracer_torch.core import rng
 DIFFUSE, GLASS, MIRROR = 0, 1, 2
 TEX_NONE, TEX_CHECKERBOARD, TEX_IMAGE = 0, 1, 2
 
-# the scene fields `replay_backward` returns cotangents for
+# the scene fields `integrator.trace` differentiates (the JAX package's
+# trainable scene fields, `tracer/train.py:50-54`, and a few more);
+# `replay_backward` returns the cotangents of all but the atlases and
+# `mesh_verts` (no mesh in its class)
 GRAD_FIELDS = (
     "sph_center", "sph_radius", "mat_mb", "quad_v0", "quad_er", "quad_eu",
     "quad_tan", "quad_bitan", "mat_check1", "mat_check2", "mat_diffuse",
     "mat_light_color", "mat_light_intensity", "mat_emissive", "mat_ior",
-    "mat_transparency", "mat_texscale", "tex_data", "nm_data", "dark_sky")
+    "mat_transparency", "mat_texscale", "tex_data", "nm_data", "dark_sky",
+    "mesh_verts")
 
 
 def hand_bwd_ok(scene, cfg) -> bool:
@@ -504,7 +508,7 @@ def _onehot_accum(acc_t, idx, rows):
 def replay_backward(scene, cfg, time, keys, rec, states, g):
     """Full hand-written backward of the replay.
 
-    rec: per-bounce records [(reci [4, N] i32, recf [8, N] f32)] from
+    rec: per-bounce records [(reci [4, N] i32, recf [8, N] f32, ...)] from
     `integrator._trace_loop(with_rec=True)`; states: per-bounce INPUT
     states [10, N] (o(3), d(3), throughput(3), active). g: [N, 3] radiance
     cotangent.
@@ -541,7 +545,7 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
     a = None
     gtex = [None] * (B - 1)
     for b in range(B - 1, -1, -1):
-        reci, recf = rec[b]
+        reci, recf = rec[b][:2]
         a, bb, acc = kbwd.bounce_bwd_tiles(
             states[b], reci[0], recf, tables, rng.salted(keys, b), time, a,
             gpix, acc, float(B - b), float(scene.dark_sky), S=S, Q=Q,

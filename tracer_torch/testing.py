@@ -1,8 +1,10 @@
 """Test scenes for the parity tests and the chip smoke run (not a render
 feature): a Cornell box whose image textures and normal maps are seeded
 uint8 arrays instead of the reference's PPM assets, procedural
-stand-in meshes in place of the reference's OFF meshes, and scenes past
-the kernels' table and mesh-count limits (`tiled_wall`, `mesh_grid`).
+stand-in meshes in place of the reference's OFF meshes, seeded skyboxes
+and sphere textures (`fill_sky`, `rt_weekend_standin`,
+`raccoon_standin`), and scenes past the kernels' table and mesh-count
+limits (`tiled_wall`, `mesh_grid`).
 
 The Cornell builder loads two textures (brick, sand) and three normal maps
 (brick, floor, water — the last unused). `fill_cornell_textures` fills those
@@ -50,7 +52,71 @@ PLACEMENTS = dict(
     flamingo=(2.5, (90, 90, 180), (0., 1., -8.)),        # zoo.py:315-316
     pond=(3.0, (0, 0, 90), (1., -5., -3.)),              # zoo.py:380
     pond_flamingo=(0.8, (90, 115, 180), (3., -1.2, -1.)),  # zoo.py:389-390
+    raccoon=(2.0, (0, -90, 0), (0., -2., -5.)),          # zoo.py:347
 )
+
+# (H, W) of the seeded skybox and sphere textures: the sizes of the
+# reference's sky.ppm (2:1 equirect) and sphere textures
+SKY_HW = (1024, 2048)
+SPHERE_TEX_HW = (512, 1024)
+
+
+def seeded_image(hw, seed: int = 0):
+    """A seeded uint8 image [H, W, 3]: smooth colour waves plus noise, so
+    that neighbouring texels differ and a texel index error shows."""
+    rs = np.random.RandomState(seed)
+    y, x = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]),
+                       indexing="ij")
+    ch = [0.5 + 0.35 * np.sin(2 * np.pi * (rs.randint(1, 5) * x
+                                          + rs.randint(1, 4) * y
+                                          + rs.uniform()))
+          for _ in range(3)]
+    img = np.stack(ch, -1) + rs.uniform(-0.1, 0.1, hw + (3,))
+    return (255.0 * np.clip(img, 0.0, 1.0)).astype(np.uint8)
+
+
+def fill_sky(sb, hw=SKY_HW, seed: int = 0):
+    """Give a scene builder of either package a seeded equirect skybox of
+    (H, W) `hw` in place of the one its zoo builder failed to load (or in
+    addition, for a builder without one); returns `sb`."""
+    sb.skybox = seeded_image(hw, seed)
+    return sb
+
+
+def fill_assets(sb, sky: bool, sky_hw=SKY_HW, tex_hw=SPHERE_TEX_HW,
+                seed: int = 0):
+    """Fill every texture and normal-map slot a zoo builder (of either
+    package) failed to load with a seeded image of (H, W) `tex_hw`, and,
+    with `sky`, its sky slot (`fill_sky`); returns `sb`."""
+    if sky:
+        fill_sky(sb, sky_hw, seed)
+    for k, slots in enumerate((sb.textures, sb.normal_maps)):
+        for i, img in enumerate(slots):
+            if img is None:
+                slots[i] = seeded_image(tex_hw, seed + 100 * k + i + 1)
+    return sb
+
+
+def rt_weekend_standin(zoo, sky_hw=SKY_HW, tex_hw=SPHERE_TEX_HW,
+                       seed: int = 0):
+    """`zoo.setup_rt_in_a_weekend()` (of either package's zoo module) with
+    a seeded sky and a seeded sun texture: 3 lights, a glass, a mirror and
+    an emissive sphere textured by image (TEX_IMAGE: the sphere-UV index
+    and the last bounce's texels), the checker floor."""
+    sb = fill_sky(zoo.setup_rt_in_a_weekend(), sky_hw, seed)
+    sb.textures[0] = seeded_image(tex_hw, seed + 1)
+    return sb
+
+
+def raccoon_standin(zoo, sky_hw=SKY_HW, tex_hw=SPHERE_TEX_HW,
+                    n_tris: int = 5_000, seed: int = 0):
+    """`zoo.setup_raccoon()` with a seeded sky, its three sphere textures
+    seeded and a stand-in mesh at the raccoon's place."""
+    sb = fill_sky(zoo.setup_raccoon(), sky_hw, seed)
+    for k in range(3):
+        sb.textures[k] = seeded_image(tex_hw, seed + 1 + k)
+    add_standin(sb, n_tris, seed, "raccoon")
+    return sb
 
 
 def standin_mesh(n_tris: int = 52_900, seed: int = 0):

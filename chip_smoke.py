@@ -53,6 +53,22 @@ the fold holds every bounce, the last one too) and on flamingo_standin
 over reps and its spread, the peak memory, the launch counts and the
 1-spp gradients against the plain path, and a profile of the
 rt_weekend_standin step (device busy, idle share, launches, top kernels).
+Last, the port's entry points (`entry_point_phases`), each path with the
+launch counts reset just before it and read just after: `train.fit` at
+850x480, 6 bounces (`[train]` lines: Cornell at 16 spp with mat_diffuse,
+sph_center and cam_quaternion, 5 steps, a bit-equal resume of params and
+Adam state; the textured Cornell at 16 spp with tex_data and mat_diffuse,
+whose guard renders the exact atlas, so B2 is not launched, with the
+first step's gradients against the plain path and the stale-pack check;
+rt_weekend_standin at 4 spp through the general backward, whose resume is
+printed, not held, since `index_add_` sums with float atomics), each with
+its losses, grad norms, step walls, peak memory, launches a step, the Adam
+update alone and the checkpoint's load and save; the tiled checkpointed
+render of Cornell (`[tiled]`: 28 tiles of 128x128 px, bit-equal to the
+direct render, half the tiles deleted and resumed, a pure skip, host 1 of
+2); and the CLI in-process (`[cli]`: render, render --ckpt-dir, probe,
+benchmark --occupancy / --compile / --profile, grad-check, train, scenes,
+then `python -m tracer_torch.cli scenes` in a subprocess).
 Every phase prints one line; any failure is an uncaught exception and a
 non-zero exit. The last two
 lines are a JSON record of the kernels and `{"ok": true, ...}`.
@@ -76,7 +92,9 @@ counted as `ulp_ties` and explained; any other fails).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -85,12 +103,15 @@ import tempfile
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available()"
                      " is false)")
 
+from tracer_torch import cli  # noqa: E402
+from tracer_torch import train as T  # noqa: E402
 from tracer_torch.core import rng  # noqa: E402
 from tracer_torch.core.config import RenderConfig  # noqa: E402
 from tracer_torch.io.ppm import write_ppm  # noqa: E402
@@ -104,6 +125,7 @@ from tracer_torch.kernels import traverse as ktraverse  # noqa: E402
 from tracer_torch.render import integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
 from tracer_torch.render.camera import default_camera  # noqa: E402
+from tracer_torch.render.film import TileManifest  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
 from tracer_torch.testing import (  # noqa: E402
@@ -1255,6 +1277,351 @@ def general_protocol_phase(label, sb, spp, trainable, reps=3):
         grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
 
 
+# ---------------------------------------------------------------------------
+# Training, the tiled render and the CLI: the port's entry points
+# ---------------------------------------------------------------------------
+
+class TimedAdam(torch.optim.Adam):
+    """`train.fit`'s default Adam (optax.adam's betas and eps) that keeps
+    the wall time of each update, the card synchronised around it, and the
+    gradients its first update was given."""
+
+    def __init__(self, leaves, lr):
+        super().__init__(leaves, lr=lr, betas=T.ADAM_BETAS, eps=T.ADAM_EPS)
+        self.update_ms, self.first_grads = [], None
+
+    def step(self, closure=None):
+        if self.first_grads is None:
+            self.first_grads = [p.grad.clone() for g in self.param_groups
+                                for p in g["params"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().step(closure)
+        torch.cuda.synchronize()
+        self.update_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def train_start(scene, cam, trainable, offsets, seed):
+    """(scene, camera) with each trainable field moved by a seeded normal
+    offset of scale offsets[name]."""
+    gen = torch.Generator().manual_seed(seed)
+    pert = {}
+    for k, v in sorted(T.split_params(scene, cam, trainable).items()):
+        noise = torch.randn(tuple(v.shape), generator=gen).to(DEV)
+        pert[k] = v.detach() + offsets[k] * noise
+    return T.apply_params(scene, cam, pert)
+
+
+def train_target(scene, cam, cfg, trainable, spp):
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        return renderer.render_pixels(scene, cam, T.guard_config(
+            cfg, trainable), W, H, pid, spp, cfg.seed) / spp
+
+
+def ckpt_leaves(path):
+    with np.load(path) as z:
+        return {f: z[f] for f in z.files}
+
+
+def leaves_equal(a, b):
+    return sorted(a) == sorted(b) and all(
+        a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f]) for f in a)
+
+
+def ckpt_roundtrip(path, scene, cam, trainable, lr):
+    """Load `path` into fresh leaves and Adam, save it again: (load s,
+    save s, whether the restored state is bit-equal to the saved one)."""
+    params = T.split_params(scene, cam, trainable)
+    opt = torch.optim.Adam([params[k] for k in sorted(params)], lr=lr,
+                           betas=T.ADAM_BETAS, eps=T.ADAM_EPS)
+    t0 = time.perf_counter()
+    T._load_ckpt(path, params, opt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    again = path + ".again.npz"
+    t0 = time.perf_counter()
+    T._save_ckpt(again, int(ckpt_leaves(path)["step"]), params, opt)
+    save_s = time.perf_counter() - t0
+    return load_s, save_s, leaves_equal(ckpt_leaves(path),
+                                        ckpt_leaves(again))
+
+
+def fit_launches(steps, expect):
+    """Per-step launches of the last `fit` (the counts were reset just
+    before it), checked against `expect` a step."""
+    got = {k: v / steps for k, v in launch_counts(*expect).items()}
+    if got != expect:
+        raise AssertionError(f"train: launches a step {got}, expected "
+                             f"{expect}")
+    return {k: int(v) for k, v in got.items()}
+
+
+def train_phase(label, sb, spp, trainable, offsets, steps, lr, expect,
+                resume_exact, grad_check=False, stale_check=False,
+                must_fall=True):
+    """`train.fit` at 850x480, 6 bounces, compat="reference", from a
+    seeded start: each step's loss and grad norm, the steps' wall time
+    (median, min, max of steps 2 on), peak memory, kernel launches a step,
+    the optimizer's update alone. Then the resume: `steps - 2` steps into
+    a checkpoint, a fresh `fit` from it to `steps`, held against the
+    uninterrupted run (bit-equal params and Adam state where
+    `resume_exact`, else the max |difference| is printed), and the
+    checkpoint's load and save seconds with the restored state bit-equal
+    to the saved one. `grad_check`: the first step's gradients against
+    the same gradients on the plain path. `stale_check`: the
+    returned scene's packs are invalidated (1-spp radiance with the
+    kernels equal to kernels="off") and the texels left the u8 grid."""
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
+    target = train_target(scene, cam, cfg, trainable, spp)
+    s0, c0 = train_start(scene, cam, trainable, offsets, seed=1)
+    kw = dict(trainable=trainable, steps=steps, lr=lr, width=W, height=H,
+              nsamples=spp)
+    tmp = tempfile.mkdtemp()
+    opts = []
+
+    def timed_adam(leaves):
+        opts.append(TimedAdam(leaves, lr))
+        return opts[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sa, ca, hist = T.fit(s0, c0, cfg, target, optimizer=timed_adam,
+                         ckpt_dir=os.path.join(tmp, "a"), ckpt_every=steps,
+                         **kw)
+    torch.cuda.synchronize()
+    launches = fit_launches(steps, expect)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if not all(np.isfinite(gnorms)) or (must_fall
+                                        and not losses[-1] < losses[0]):
+        raise AssertionError(f"train {label}: losses {losses}, grad norms "
+                             f"{gnorms}")
+    walls = sorted(h["step_s"] for h in hist[1:])
+    extra = {}
+    if grad_check:
+        extra["first_grad_rel_err_vs_plain"] = first_grads_vs_plain(
+            opts[0].first_grads, s0, c0, cfg, trainable, target, spp)
+    if stale_check:
+        extra.update(stale_pack_check(sa, ca, cfg, scene))
+
+    # resume: steps - 2 steps, then a fresh fit to `steps`
+    T.fit(s0, c0, cfg, target, ckpt_dir=os.path.join(tmp, "b"),
+          ckpt_every=steps, **{**kw, "steps": steps - 2})
+    sb_, cb, hist_b = T.fit(s0, c0, cfg, target,
+                            ckpt_dir=os.path.join(tmp, "b"),
+                            ckpt_every=steps, **kw)
+    if [h["step"] for h in hist_b] != [steps - 1, steps]:
+        raise AssertionError(f"train {label}: resumed steps "
+                             f"{[h['step'] for h in hist_b]}")
+    pa, pb = (T.split_params(s, c, trainable) for s, c in ((sa, ca),
+                                                           (sb_, cb)))
+    diff = max(float((pa[k] - pb[k]).detach().abs().max())
+               for k in trainable)
+    a, b = (os.path.join(tmp, x, "train.npz") for x in "ab")
+    same_state = leaves_equal(ckpt_leaves(a), ckpt_leaves(b))
+    if resume_exact and not (diff == 0.0 and same_state):
+        raise AssertionError(f"train {label}: resumed run differs "
+                             f"(params {diff:.3g}, state equal "
+                             f"{same_state})")
+    load_s, save_s, restored = ckpt_roundtrip(b, s0, c0, trainable, lr)
+    if not restored:
+        raise AssertionError(f"train {label}: restored state differs from "
+                             f"the saved one")
+    say("train", scene=label, size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
+        trainable="+".join(trainable), lr=lr,
+        offsets={k: offsets[k] for k in trainable}, steps=steps,
+        losses=[f"{x:.6g}" for x in losses],
+        grad_norms=[f"{x:.4g}" for x in gnorms],
+        step_s_median=f"{walls[len(walls) // 2]:.4f}",
+        step_s_min=f"{walls[0]:.4f}", step_s_max=f"{walls[-1]:.4f}",
+        adam_update_ms=f"{np.median(opts[0].update_ms):.3f}",
+        peak_mem_gb=f"{peak / 1e9:.3f}", launches_per_step=launches,
+        resume="bit-equal" if diff == 0.0 and same_state else "differs",
+        resume_max_abs_diff=f"{diff:.3g}", resume_state_equal=same_state,
+        ckpt_load_s=f"{load_s:.4f}", ckpt_save_s=f"{save_s:.4f}",
+        ckpt_kb=f"{os.path.getsize(b) / 1e3:.1f}", **extra)
+    return opts[0]
+
+
+def first_grads_vs_plain(first, s0, c0, cfg, trainable, target, spp):
+    """The first step's gradients (`first`, by sorted name, as `fit` took
+    them with the kernels) against the same loss's gradients on the plain
+    path (kernels="off"): max relative error a field."""
+    cfg = dataclasses.replace(T.guard_config(cfg, trainable), kernels="off")
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    params = T.split_params(s0, c0, trainable)
+    s, cm = T.apply_params(s0, c0, params)
+    img = renderer.render_pixels(s, cm, cfg, W, H, pid, spp, cfg.seed) / spp
+    torch.mean((img - target) ** 2).backward()
+    rel = {}
+    for k, g in zip(sorted(trainable), first):
+        scale = float(params[k].grad.abs().max())
+        d = float((g - params[k].grad).abs().max())
+        rel[k] = d / scale if scale > 0 else d
+        if not rel[k] <= GRAD_RTOL:
+            raise AssertionError(f"train: first-step {k} gradient rel err "
+                                 f"{rel[k]:.3g} > {GRAD_RTOL}")
+    return {k: f"{v:.3g}" for k, v in rel.items()}
+
+
+def stale_pack_check(s1, c1, cfg, pristine):
+    """tests/test_train.py:155-166 on the card: the trained scene's packs
+    are invalidated, so its 1-spp radiance with the kernels equals
+    kernels="off", and the texels left the u8 grid."""
+    if s1.pair_mode or s1.pair_pack.shape[0] != 1:
+        raise AssertionError("train: packs not invalidated")
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        rk, rp = (renderer.render_pixels(s1, c1, c, W, H, pid, 1, cfg.seed)
+                  for c in (cfg, dataclasses.replace(cfg, kernels="off")))
+    err = float((rk - rp).abs().max())
+    moved = float((s1.tex_data - pristine.tex_data).abs().max())
+    check("train stale-pack radiance", 0, err)
+    if not moved > 1e-4:
+        raise AssertionError(f"train: texels moved only {moved:.3g}")
+    return dict(stale_pack_err=f"{err:.3g}", texels_moved=f"{moved:.4g}")
+
+
+def tiled_phase(label, sb, spp, tile=128):
+    """`render(ckpt_dir=..., tile=128)` against the direct render: the
+    image bit for bit, both walls; then every other tile file deleted and
+    the resume (only those re-rendered: the kept files' mtimes unchanged),
+    a third call that renders nothing, and host 1 of 2 in a fresh store
+    (only its tiles, equal to the first store's)."""
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
+    renderer.render(scene, cam, cfg, nsamples=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = renderer.render(scene, cam, cfg)
+    direct_s = time.perf_counter() - t0
+    d = tempfile.mkdtemp()
+    man = TileManifest(W, H, tile, d)
+    reset_launches()
+    t0 = time.perf_counter()
+    img = renderer.render(scene, cam, cfg, ckpt_dir=d, tile=tile)
+    tiled_s = time.perf_counter() - t0
+    launches = launch_counts("first_hits", "shade_scatter")
+    n = man.n_tiles
+    if launches != dict(first_hits=n * spp * BOUNCES,
+                        shade_scatter=n * spp * BOUNCES):
+        raise AssertionError(f"tiled {label}: launches {launches}")
+    if not np.array_equal(img, direct):
+        raise AssertionError(f"tiled {label}: image differs from the direct "
+                             f"render by {np.abs(img - direct).max():.3g}")
+    files = sorted(os.listdir(d))
+    if len(files) != n:
+        raise AssertionError(f"tiled {label}: {len(files)} tile files")
+    for f in files[::2]:
+        os.remove(os.path.join(d, f))
+    kept = {f: os.path.getmtime(os.path.join(d, f)) for f in files[1::2]}
+    t0 = time.perf_counter()
+    img2 = renderer.render(scene, cam, cfg, ckpt_dir=d, tile=tile)
+    resume_s = time.perf_counter() - t0
+    every = {f: os.path.getmtime(os.path.join(d, f)) for f in files}
+    t0 = time.perf_counter()
+    reset_launches()
+    img3 = renderer.render(scene, cam, cfg, ckpt_dir=d, tile=tile)
+    skip_s = time.perf_counter() - t0
+    if (launch_counts("first_hits")["first_hits"] != 0
+            or every != {f: os.path.getmtime(os.path.join(d, f))
+                         for f in files}
+            or any(every[f] != t for f, t in kept.items())
+            or not (np.array_equal(img2, direct)
+                    and np.array_equal(img3, direct))):
+        raise AssertionError(f"tiled {label}: resume re-rendered kept tiles "
+                             f"or changed the image")
+    d2 = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    renderer.render(scene, cam, cfg, ckpt_dir=d2, tile=tile, host=1,
+                    n_hosts=2)
+    host_s = time.perf_counter() - t0
+    mine = sorted(os.listdir(d2))
+    if mine != files[1::2] or not all(np.array_equal(
+            man.load_tile(t)[0], TileManifest(W, H, tile, d2).load_tile(t)[0])
+            for t in range(1, n, 2)):
+        raise AssertionError(f"tiled {label}: host 1 of 2 wrote {mine}")
+    say("tiled", scene=label, size=f"{W}x{H}", spp=spp, tile=tile, tiles=n,
+        direct_s=f"{direct_s:.4f}", tiled_s=f"{tiled_s:.4f}",
+        resume_half_s=f"{resume_s:.4f}", skip_s=f"{skip_s:.4f}",
+        host_1_of_2_s=f"{host_s:.4f}", image="bit-equal",
+        launches=launches)
+
+
+def cli_phase():
+    """`tracer_torch.cli.main([...])` in-process for each subcommand
+    (render, render --ckpt-dir, probe, benchmark --occupancy / --compile /
+    --profile, grad-check, train, scenes), at the CLI's default 850x480
+    and 6 bounces: each one's wall time and its JSON, then one
+    `python -m tracer_torch.cli scenes` in a subprocess."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    tiles = tempfile.mkdtemp()
+    runs = [
+        ("render", ["render", "--spp", "16", "--out",
+                    os.path.join(out_dir, "cornell_box.ppm")]),
+        ("render_ckpt", ["render", "--spp", "16", "--ckpt-dir", tiles,
+                         "--out", os.path.join(out_dir, "cornell_tiled.png")]),
+        ("probe", ["probe", "--x", "240", "--y", "70"]),
+        ("occupancy", ["benchmark", "--occupancy"]),
+        ("compile", ["benchmark", "--compile"]),
+        ("profile", ["benchmark", "--profile",
+                     os.path.join(out_dir, "profile")]),
+        ("grad_check", ["grad-check"]),
+        ("train", ["train", "--steps", "3", "--spp", "4"]),
+        ("scenes", ["scenes"]),
+    ]
+    for name, argv in runs:
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)     # raises (SystemExit too) on failure
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue().strip()
+        kv = dict(cmd='"' + " ".join(argv) + '"', wall_s=f"{wall:.3f}")
+        if name.startswith("render"):
+            # the direct render: one chunk of 16 spp; the tiled one: 28
+            # tiles of 128x128 px
+            calls = 16 * BOUNCES * (1 if name == "render" else 28)
+            n = launch_counts("first_hits", "shade_scatter")
+            if n != dict(first_hits=calls, shade_scatter=calls):
+                raise AssertionError(f"cli {name}: launches {n}")
+            kv["launches"] = n
+        if name == "grad_check":
+            res = json.loads(text)
+            if not all(r["ok"] for r in res.values()):
+                raise AssertionError(f"cli grad-check: {res}")
+            kv["result"] = json.dumps(res, separators=(",", ":"))
+        elif name == "scenes":
+            kv["scenes"] = len(text.splitlines())
+        elif text.splitlines() and text.splitlines()[-1].startswith("{"):
+            kv["json"] = text.splitlines()[-1]
+        else:
+            kv["out"] = text.splitlines()[-1] if text else ""
+        say("cli", name=name, **kv)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tracer_torch.cli",
+                          "scenes"], capture_output=True, text=True,
+                         timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0 or len(res.stdout.splitlines()) != 11:
+        raise AssertionError(f"python -m tracer_torch.cli scenes: "
+                             f"{res.returncode} {res.stderr[-500:]}")
+    say("cli", name="module_entry", cmd="python -m tracer_torch.cli scenes",
+        wall_s=f"{time.perf_counter() - t0:.3f}",
+        scenes=len(res.stdout.splitlines()))
+
+
 def lanes_phase_inputs(scene, tables):
     """The inputs of B5 and B6 at the flagship shapes: the camera rays of
     one sample (bounce 0) and the rays the kernel path scatters from them
@@ -1590,6 +1957,43 @@ def limits_phase(label, sb, expect):
         state = st_p
 
 
+def entry_point_phases(flat_sb, pair_sb, rtw_sb):
+    """Training (`train.fit`), the tiled checkpointed render and the CLI,
+    each path with the counts reset just before it and read just after."""
+    n = SPP * BOUNCES
+    none = dict(traverse=0, shadow=0)
+    train_phase("cornell", flat_sb, SPP,
+                ("mat_diffuse", "sph_center", "cam_quaternion"),
+                dict(mat_diffuse=0.05, sph_center=0.02,
+                     cam_quaternion=0.002), steps=5, lr=2e-3,
+                expect=dict(first_hits=n, shade_scatter=n, bounce_bwd=n,
+                            sorted_fold=0, **none),
+                resume_exact=True)
+    # texels train: guard_config renders the exact atlas (general route,
+    # no B2), the hand-written sweep (B3) and the fold (B4) stay
+    train_phase("cornell_textured", pair_sb, SPP, ("tex_data", "mat_diffuse"),
+                dict(tex_data=0.05, mat_diffuse=0.05), steps=3, lr=1e-2,
+                expect=dict(first_hits=n, shade_scatter=0, bounce_bwd=n,
+                            sorted_fold=SPP, **none),
+                resume_exact=True, grad_check=True, stale_check=True)
+    # the general backward: its row gradients sum with index_add_'s float
+    # atomics, so the resumed run is printed against the uninterrupted
+    # one, not held to it. Its loss need not fall: each sphere sits under
+    # a light, and Adam's first steps (about lr a component) move the
+    # spheres' shadows, whose visibility the gradient does not see
+    rtw_spp = 4
+    train_phase("rt_weekend_standin", rtw_sb, rtw_spp,
+                ("mat_diffuse", "sph_center", "tex_data"),
+                dict(mat_diffuse=0.05, sph_center=0.02, tex_data=0.05),
+                steps=3, lr=1e-2,
+                expect=dict(first_hits=rtw_spp * BOUNCES, shade_scatter=0,
+                            bounce_bwd=0, sorted_fold=rtw_spp, traverse=0,
+                            shadow=rtw_spp * BOUNCES),
+                resume_exact=False, must_fall=False)
+    tiled_phase("cornell", flat_sb, SPP)
+    cli_phase()
+
+
 def ptxas_report(info):
     """{kernel: "N registers, S B stack, spills"} from nvcc's -Xptxas -v
     report: each 'Compiling entry function' line names the kernel that the
@@ -1721,6 +2125,8 @@ def main():
                   trainable=("mat_diffuse", "sph_center", "tex_data"))
     general_protocol_phase("flamingo_standin", flam_sb, SPP,
                            ("mesh_verts", "mat_diffuse", "sph_center"))
+
+    entry_point_phases(flat_sb, pair_sb, rtw_sb)
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,

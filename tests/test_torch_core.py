@@ -19,8 +19,8 @@ from tracer.core.mathutils import gamma_correct as jgamma
 from tracer.render import camera as jcam
 from tracer_torch.core import rng as trng
 from tracer_torch.core.config import RenderConfig as TConfig
-from tracer_torch.core.mathutils import gamma_correct as tgamma
 from tracer_torch.render import camera as tcam
+from tracer_torch.render.film import to_image
 
 
 def _ids(n=4096, seed=0):
@@ -115,10 +115,13 @@ def test_camera_rays(pose):
 
 
 def test_gamma_correct():
-    x = np.random.RandomState(3).uniform(-0.5, 4.0, 5000).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(jgamma(jnp.asarray(x))),
-                               tgamma(torch.from_numpy(x)).numpy(),
-                               atol=1e-6, rtol=1e-6)
+    """The port's images take gamma 1/2.2 and the clamp in
+    `render/film.py::to_image` (the direct and the tiled render both)."""
+    x = np.random.RandomState(3).uniform(-0.5, 4.0,
+                                         (5000, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        np.clip(np.asarray(jgamma(jnp.asarray(x))), 0.0, 1.0),
+        to_image(x, 1, 5000).reshape(5000, 3), atol=1e-6, rtol=1e-6)
 
 
 def test_port_never_imports_jax():

@@ -9,7 +9,12 @@ JAX. Layout and names mirror `tracer/`: each module sits at the same path.
 The forward render (Cornell, lit scenes, mesh scenes) and the Cornell
 backward run on six hand-written CUDA kernels (`kernels/csrc/*.cu`: first
 hit, shade+scatter, BVH walk, soft shadows, bounce adjoint, texel fold);
-on CPU tensors each kernel's plain PyTorch version runs instead.
+on CPU tensors each kernel's plain PyTorch version runs instead. On top of
+them: `train.py` (`fit`: Adam with exact-resume checkpoints in the JAX
+package's layout), `render/film.py` (`Film`, `TileManifest`: the tiled,
+checkpointed render of `render(ckpt_dir=...)`) and `cli.py`
+(`python -m tracer_torch.cli render|probe|benchmark|grad-check|train|
+scenes`).
 """
 
 from tracer_torch.core.config import RenderConfig

@@ -63,3 +63,63 @@ def generate_rays(camera: Camera, u, v):
     d = tuple(c / n for c in dw)
     o = tuple(camera.position[i].expand_as(x).contiguous() for i in range(3))
     return o, d
+
+
+def matrix_to_quat(R):
+    """Rotation matrix [3, 3] -> unit quaternion (w, x, y, z), w >= 0.
+
+    Shepperd's form with branch selection: the quaternion component of
+    largest magnitude is taken from the largest of the trace and the three
+    diagonal entries, and the others from off-diagonal sums over it. The
+    JAX package's trace-only form divides by w, so it returns the identity
+    for a half turn (w = 0); this form does not."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    r = [[R[i, j] for j in range(3)] for i in range(3)]
+    t = r[0][0] + r[1][1] + r[2][2]
+    k = int(torch.argmax(torch.stack([t, r[0][0], r[1][1], r[2][2]])))
+    if k == 0:
+        w = 0.5 * torch.sqrt(torch.clamp_min(1.0 + t, 1e-12))
+        s = 0.25 / w
+        q = [w, s * (r[2][1] - r[1][2]), s * (r[0][2] - r[2][0]),
+             s * (r[1][0] - r[0][1])]
+    else:
+        i = k - 1
+        j, l = (i + 1) % 3, (i + 2) % 3
+        c = 0.5 * torch.sqrt(torch.clamp_min(
+            1.0 + r[i][i] - r[j][j] - r[l][l], 1e-12))
+        s = 0.25 / c
+        v = [None, None, None]
+        v[i] = c
+        v[j] = s * (r[j][i] + r[i][j])
+        v[l] = s * (r[l][i] + r[i][l])
+        q = [s * (r[l][j] - r[j][l])] + v
+    q = torch.stack(q)
+    if float(q[0]) < 0.0:
+        q = -q
+    return q / torch.clamp_min(torch.sqrt(torch.sum(q * q)), 1e-20)
+
+
+def look_at_quaternion(position, target, up=(0.0, 1.0, 0.0), device=None):
+    """Orientation quaternion so that a camera at `position` looks at
+    `target` (camera forward = -z, as `generate_rays` builds
+    d_cam = (x, y, -1)), on `device` (default: the position's, else the
+    CPU)."""
+    if device is None:
+        device = (position.device if isinstance(position, torch.Tensor)
+                  else "cpu")
+    f32 = dict(dtype=torch.float32, device=device)
+    position = torch.as_tensor(position, **f32)
+    target = torch.as_tensor(target, **f32)
+    up = torch.as_tensor(up, **f32)
+
+    def normalize(v):
+        return v / torch.clamp_min(torch.sqrt(torch.sum(v * v)), 1e-20)
+
+    f = normalize(target - position)
+    r = torch.linalg.cross(f, up)
+    # up parallel to forward: any right vector perpendicular to forward
+    if float(torch.sqrt(torch.sum(r * r))) < 1e-8:
+        r = torch.linalg.cross(f, torch.tensor([1.0, 0.0, 0.0], **f32))
+    r = normalize(r)
+    u2 = torch.linalg.cross(r, f)
+    return matrix_to_quat(torch.stack([r, u2, -f], dim=1))

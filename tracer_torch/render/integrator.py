@@ -85,9 +85,15 @@ def _fused(scene, cfg: RenderConfig) -> bool:
     """Whether a forward bounce takes the fused route: the JAX package's
     `fused = kernels_on and ((pair_mode and packed_on) or no_atlas)`, with
     the port's kernels always on the route (a CPU tensor takes their plain
-    versions, `RenderConfig.kernels`)."""
+    versions, `RenderConfig.kernels`). A pair atlas of one row (at most 16
+    texel pairs) takes the general route: the fused bounce fetches pair
+    texels only from packs of more than one row (one row is the sentinel
+    of `train.invalidate_packs`), so there it would drop the texels. (The
+    JAX package's kernel route has that fault; its CPU path, with the
+    kernels off, takes the general route.)"""
     packed_on = cfg.packed_atlas != "off"
-    return (scene.pair_mode and packed_on) or _no_atlas(scene)
+    pair_ok = scene.pair_mode and scene.pair_pack.shape[0] > 1
+    return (pair_ok and packed_on) or _no_atlas(scene)
 
 
 class FrameTables(NamedTuple):
@@ -621,7 +627,7 @@ def _st10(state):
 
 
 def _trace_loop(scene, cfg: RenderConfig, o, d, time, keys, tables,
-                with_rec=False, with_states=None):
+                with_rec=False, with_states=None, occupancy=None):
     """The bounce loop (`lax.scan` in the JAX package), the last bounce
     specialised: (radiance [N, 3], recs, states). With `with_rec` it is the
     record forward, the port of
@@ -629,7 +635,9 @@ def _trace_loop(scene, cfg: RenderConfig, o, d, time, keys, tables,
     record (`_bounce_core(with_rec=True)`) and, with `with_states`
     (default: `with_rec` and the hand-written class), states each bounce's
     input state [10, N], the residuals of the hand-written backward
-    (`replay_bwd.replay_backward`); else the lists are empty."""
+    (`replay_bwd.replay_backward`); else the lists are empty. A list given
+    as `occupancy` receives each bounce's share of lanes active at its
+    start, as a device scalar (no read of the card per bounce)."""
     B = cfg.max_bounces
     if with_states is None:
         with_states = with_rec and replay_bwd.hand_bwd_ok(scene, cfg)
@@ -638,6 +646,8 @@ def _trace_loop(scene, cfg: RenderConfig, o, d, time, keys, tables,
     for b in range(B):
         if with_states:
             states.append(_st10(state))
+        if occupancy is not None:
+            occupancy.append(state["active"].to(torch.float32).mean())
         state, rec = _bounce_core(scene, cfg, keys, state, b,
                                   last=b == B - 1, tables=tables,
                                   with_rec=with_rec)
@@ -785,19 +795,35 @@ def _check_grad(scene, cfg: RenderConfig):
             "yet (ROADMAP.md Queue A, 'Plain autodiff backward')")
 
 
-def trace(scene, cfg: RenderConfig, o, d, time, keys, tables=None):
+def trace(scene, cfg: RenderConfig, o, d, time, keys, tables=None,
+          with_aux=False):
     """Trace a ray batch to radiance [N, 3].
 
     o, d: planar (x, y, z) of [N] f32; time: [N] f32; keys: [N] per-ray
     keys (int64 holding uint32, pixel and sample folded in). Equivalent of
     Scene::rayTrace (Scene.h:345-350) over a batch. Differentiable (see the
     module docstring) when grad mode is on and an input requires grad:
-    o, d, time, or one of the scene fields of `replay_bwd.GRAD_FIELDS`."""
+    o, d, time, or one of the scene fields of `replay_bwd.GRAD_FIELDS`.
+    `with_aux=True` returns (radiance, {"occupancy": [B] f32}), the share
+    of lanes active at the start of each bounce; it does not differentiate
+    (the JAX package takes its plain autodiff path there)."""
     if tables is None:
         tables = prepare(scene)
     inputs = (*(getattr(scene, f) for f in replay_bwd.GRAD_FIELDS),
               *o, *d, time)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    if with_aux:
+        if grad:
+            raise NotImplementedError(
+                "trace(with_aux=True) under grad runs the plain autodiff "
+                "backward, which is not ported yet (ROADMAP.md Queue A, "
+                "'Plain autodiff backward')")
+        occ = []
+        with torch.no_grad():
+            out = _trace_loop(scene, cfg, o, d, time, keys, tables,
+                              occupancy=occ)[0]
+        return out, {"occupancy": torch.stack(occ)}
+    if grad:
         _check_grad(scene, cfg)
         return _TraceRecordReplay.apply(scene, cfg, keys, tables, *inputs)
     with torch.no_grad():

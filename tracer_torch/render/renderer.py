@@ -3,7 +3,12 @@ pixels × samples grid is a flat ray stream traced in device batches;
 samples are summed into a float film, then per-pixel mean, gamma 1/2.2 and
 clamp reproduce the reference's main.cpp:193-196 / 258-261.
 
-Not ported yet: the tiled, checkpointed render (`ckpt_dir`).
+Recovery: with `ckpt_dir`, `render` goes tile by tile through a
+`film.TileManifest`: each tile's (film_sum, samples_done) is saved
+atomically, and a restarted render re-renders only the missing tiles. A
+pixel's random streams depend only on its id and the sample, so a tile's
+radiance equals the same pixels' radiance in a direct render, and the
+store's format is the JAX package's, so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -13,9 +18,9 @@ import torch
 
 from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
-from tracer_torch.core.mathutils import gamma_correct
 from tracer_torch.render import integrator
 from tracer_torch.render.camera import Camera, generate_rays
+from tracer_torch.render.film import TileManifest, to_image
 
 
 def camera_batch(camera: Camera, width: int, height: int, pixel_ids,
@@ -64,13 +69,23 @@ def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
 
 @torch.no_grad()
 def render(scene, camera: Camera, cfg: RenderConfig, width=None,
-           height=None, nsamples=None, progress=False):
+           height=None, nsamples=None, progress=False, ckpt_dir=None,
+           tile=128, host=0, n_hosts=1):
     """Full-frame render -> float32 numpy [H, W, 3] gamma-corrected image,
     traced on the scene's device in chunks of `cfg.rays_per_batch` pixels.
+
+    With `ckpt_dir`, renders tile by tile (`tile` x `tile` pixels) with
+    atomic per-tile checkpoints and resumes exactly: tiles already done
+    (>= nsamples accumulated) are skipped, and the image is assembled from
+    the tile store. This host renders the tiles t with
+    t % n_hosts == host.
     """
     width = width or cfg.width
     height = height or cfg.height
     nsamples = nsamples or cfg.nsamples
+    if ckpt_dir is not None:
+        return _render_tiled(scene, camera, cfg, width, height, nsamples,
+                             ckpt_dir, tile, host, n_hosts, progress)
     dev = scene.device
     n_pix = width * height
     chunk = min(cfg.rays_per_batch, n_pix)
@@ -83,9 +98,27 @@ def render(scene, camera: Camera, cfg: RenderConfig, width=None,
         film[lo:hi] = rad.cpu().numpy()
         if progress:
             print(f"  pixels {hi}/{n_pix}", flush=True)
-    img = film / np.float32(nsamples)
-    img = gamma_correct(torch.from_numpy(img)).numpy()
-    return np.clip(img, 0.0, 1.0).reshape(height, width, 3)
+    return to_image(film / np.float32(nsamples), width, height)
+
+
+def _render_tiled(scene, camera, cfg, width, height, nsamples, ckpt_dir,
+                  tile, host, n_hosts, progress):
+    """The tiled, checkpointed render (`render(ckpt_dir=...)`). The JAX
+    package pads each edge tile to tile*tile ids for one jit cache entry;
+    the port traces a tile's own ids."""
+    man = TileManifest(width, height, tile, ckpt_dir)
+    for t in man.tiles_for_host(host, n_hosts):
+        if man.done(t, nsamples):
+            if progress:
+                print(f"  tile {t}: already done, skipping", flush=True)
+            continue
+        pids = torch.from_numpy(man.tile_pixels(t)).to(scene.device)
+        rad = render_pixels(scene, camera, cfg, width, height, pids,
+                            nsamples, cfg.seed)
+        man.save_tile(t, rad.cpu().numpy(), nsamples)
+        if progress:
+            print(f"  tile {t}: rendered {pids.shape[0]} px", flush=True)
+    return man.assemble(nsamples)
 
 
 def render_image(scene, camera, cfg, path, **kw):

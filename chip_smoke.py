@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist    # the build and distribution alone
 
 Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
 each kernel's registers and spills), holds each against its plain PyTorch
@@ -68,7 +69,26 @@ render of Cornell (`[tiled]`: 28 tiles of 128x128 px, bit-equal to the
 direct render, half the tiles deleted and resumed, a pure skip, host 1 of
 2); and the CLI in-process (`[cli]`: render, render --ckpt-dir, probe,
 benchmark --occupancy / --compile / --profile, grad-check, train, scenes,
-then `python -m tracer_torch.cli scenes` in a subprocess).
+then `python -m tracer_torch.cli scenes` in a subprocess). Then
+distribution (`dist_phases`): (a) a process group of one rank over NCCL,
+whose (1, 1) mesh renders the 16-spp Cornell frame bit-equal to
+`render_pixels / 16` and whose `fit(mesh=)` equals `fit()` bit for bit
+over 3 steps; (b) two ranks sharing the card over gloo (NCCL refuses two
+ranks on one card) on the (2, 1) and (1, 2) meshes: the gathered frame
+against the unsharded render (bit-equal on (2, 1), within 1e-5 on
+(1, 2)), `train_step` within rtol 1e-4 of the unsharded step, each rank's
+launches, walls and seconds in collectives, and `render_image_multihost`
+on 2 hosts x 1 bit-equal to `render`; (c) `dryrun_multichip(2)`; (d) with
+two cards, (b) over NCCL too (the line says which variant ran), and with
+four, four NCCL ranks on (2, 2) and (4, 1), the pod mesh sized by the
+card count, `dryrun_multichip(4)` and README's four-card recipe (shell
+processes joined by the env vars); each step's gradients and grad norm
+are held against the unsharded step's. Last, the
+plain autodiff backward (`plain_ad_phase`, custom_vjp="off"): the Cornell
+16-spp protocol step and flamingo_standin at 4 spp (mesh_verts), their
+walls, peak memory, launches (B1 once a bounce, B5 and B6 on the mesh
+scene; no B2, B3 or B4) and 1-spp gradients against kernels="off" and
+against custom_vjp="on".
 Every phase prints one line; any failure is an uncaught exception and a
 non-zero exit. The last two
 lines are a JSON record of the kernels and `{"ok": true, ...}`.
@@ -1994,6 +2014,391 @@ def entry_point_phases(flat_sb, pair_sb, rtw_sb):
     cli_phase()
 
 
+# ---------------------------------------------------------------------------
+# Distribution (tracer_torch/dist/) and the plain autodiff backward
+# ---------------------------------------------------------------------------
+
+def walls_of(fn, reps):
+    """(result of the last call, sorted walls of `reps` calls after one
+    warm-up call, each ending in a synchronise, launches of the first)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for r in range(reps):
+        if r == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r == 0:
+            launches = launch_counts(*KERNEL_MODULES)
+    return out, sorted(walls), {k: v for k, v in launches.items() if v}
+
+
+def spread(walls):
+    return dict(median=f"{walls[len(walls) // 2]:.4f}",
+                min=f"{walls[0]:.4f}", max=f"{walls[-1]:.4f}")
+
+
+STEP_FIELDS = ("sph_center", "sph_radius", "mat_diffuse")
+# sharding.train_step's trainables
+STEP_TRAINABLE = ["sph_center", "sph_radius", "mat_diffuse", "tex_data",
+                  "mesh_verts", "cam_position"]
+
+
+def step_result(loss, s1, c1):
+    return dict(loss=float(loss), cam_position=c1.position.cpu().numpy(),
+                **{k: getattr(s1, k).cpu().numpy() for k in STEP_FIELDS})
+
+
+def step_grads(scene, cam, cfg, pid, target, spp, mesh):
+    """(grad norm, {leaf: gradient}) of `train_step`'s step on `mesh`:
+    `train.make_step`, the step it delegates to, with its trainables and
+    SGD; the gradients as the update reads them, after the mesh's
+    reduction (a leaf without one: zeros)."""
+    params = T.split_params(scene, cam, STEP_TRAINABLE)
+    opt = torch.optim.SGD([params[k] for k in sorted(params)], lr=1e-2)
+    step = T.make_step(opt, T.guard_config(cfg, STEP_TRAINABLE), target, W,
+                       H, spp, mesh)
+    _, gnorm = step(params, scene, cam, pid, 0)
+    return float(gnorm), {
+        k: (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+            else p.grad.cpu().numpy()) for k, p in params.items()}
+
+
+def dist_rank(shapes, spp, reps, pod):
+    """One rank of a multi-rank phase: for each mesh shape, the sharded
+    16-spp Cornell frame (`render_pixels_sharded`) and `train_step`, each
+    `reps` times after a warm-up: walls, this rank's launches, the seconds
+    spent in collectives (`sharding.collective_spans`: the card
+    synchronised around each collective), rank 0's gathered film, the
+    step's result, and its gradients and grad norm (`step_grads`); with
+    `pod`, rank 0's `render_image_multihost` frame on the host-major mesh
+    (`make_pod_mesh()`)."""
+    import torch.distributed as dist
+
+    from tracer_torch.dist import multihost, sharding
+
+    dev = torch.device("cuda", torch.cuda.current_device())   # this rank's
+    scene = compile_scene(zoo.setup_cornell_box(W / H), device=dev)
+    cam = default_camera(W / H, device=dev)
+    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
+    pid = torch.arange(W * H, dtype=torch.int32, device=dev)
+    target = torch.zeros((W * H, 3), dtype=torch.float32)
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(),
+               card=dev.index)
+    for shape in shapes:
+        mesh = sharding.make_ray_mesh(*shape)
+        spans = []
+
+        @torch.no_grad()
+        def frame():
+            with sharding.collective_spans() as s:
+                blk = sharding.render_pixels_sharded(
+                    scene, cam, cfg, W, H, pid, spp, cfg.seed, mesh)
+            spans[:] = s
+            return blk
+
+        def step():
+            with sharding.collective_spans() as s:
+                res = sharding.train_step(scene, cam, cfg, W, H, pid,
+                                          target, spp, 0, mesh)
+            spans[:] = s
+            return res
+
+        blk, fwalls, flaunch = walls_of(frame, reps)
+        fcoll = sum(t for _, t in spans)
+        film = multihost.gather_film(blk, mesh)
+        res, swalls, slaunch = walls_of(step, reps)
+        out[shape] = dict(
+            coord=(mesh.dp_rank, mesh.sp_rank), frame_walls=fwalls,
+            frame_launches=flaunch, frame_coll_s=fcoll,
+            step_walls=swalls, step_launches=slaunch,
+            step_coll_s=sum(t for _, t in spans), step=step_result(*res),
+            grads=step_grads(scene, cam, cfg, pid, target, spp, mesh),
+            film=film if dist.get_rank() == 0 else None)
+    if pod:
+        pmesh = multihost.make_pod_mesh()
+        img = multihost.render_image_multihost(scene, cam, cfg, pmesh)
+        out["pod"] = dict(shape=dict(pmesh.shape),
+                          img=img if dist.get_rank() == 0 else None)
+    return out
+
+
+def dist_world1_phase(sb, spp):
+    """(a) A process group of one rank over NCCL at full width: the
+    (1, 1) mesh's render equals `render_pixels / spp` bit for bit, and
+    `fit(mesh=...)` for 3 steps equals `fit()` (losses, grad norms,
+    params), on the trainables of the Cornell training cell."""
+    import torch.distributed as dist
+
+    from tracer_torch.dist import launch, multihost, sharding
+
+    multihost.initialize(f"localhost:{launch.free_port()}", 1, 0,
+                         device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        mesh = sharding.make_ray_mesh(1, 1)
+        scene = compile_scene(sb, device=DEV)
+        cam = default_camera(W / H, device=DEV)
+        cfg = RenderConfig(nsamples=spp, width=W, height=H,
+                           max_bounces=BOUNCES)
+        pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+        with torch.no_grad():
+            want = renderer.render_pixels(scene, cam, cfg, W, H, pid, spp,
+                                          cfg.seed) / spp
+            got, fwalls, launches = walls_of(
+                lambda: sharding.render_pixels_sharded(
+                    scene, cam, cfg, W, H, pid, spp, cfg.seed, mesh), 3)
+        if not bit_equal(got, want):
+            raise AssertionError("dist (1, 1): render differs from "
+                                 "render_pixels / spp")
+        trainable = ["mat_diffuse", "sph_center", "cam_quaternion"]
+        target = train_target(scene, cam, cfg, trainable, spp)
+        s0, c0 = train_start(scene, cam, trainable,
+                             dict(mat_diffuse=0.05, sph_center=0.02,
+                                  cam_quaternion=0.002), seed=1)
+        runs = []
+        for m in (None, mesh):
+            s1, c1, hist = T.fit(s0, c0, cfg, target, trainable, steps=3,
+                                 lr=2e-3, seed=0, mesh=m)
+            runs.append((T.split_params(s1, c1, trainable), hist))
+        (pa, ha), (pb, hb) = runs
+        same = ([(h["loss"], h["grad_norm"]) for h in ha]
+                == [(h["loss"], h["grad_norm"]) for h in hb]
+                and all(bit_equal(pa[k].detach(), pb[k].detach())
+                        for k in trainable))
+        if not same:
+            raise AssertionError("dist (1, 1): fit(mesh=) differs from fit()")
+        say("dist_world1", backend="nccl", mesh="1x1", size=f"{W}x{H}",
+            spp=spp, bounces=BOUNCES, frame_vs_render_pixels="bit-equal",
+            frame_s=spread(fwalls), launches=launches,
+            fit_vs_fit="bit-equal", losses=[f"{h['loss']:.6g}" for h in hb],
+            step_s=[f"{h['step_s']:.4f}" for h in hb])
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_ranks_phase(sb, spp, n, backend, shapes, local_world_size,
+                     pod_shape, reps=3):
+    """(b) and (d): n ranks (gloo sharing the one card, or NCCL with a
+    card each) on each (n_dp, n_sp) of `shapes`: the gathered 16-spp
+    Cornell frame against the unsharded render (bit-equal where sp is 1,
+    else within 1e-5), `train_step`'s loss and params within rtol 1e-4 of
+    the unsharded step's, its gradients (rtol 1e-4, atol 1e-5 * the
+    leaf's largest) and grad norm (rtol 1e-4) against the unsharded
+    step's (a gradient scaled by n_sp, or missing a block, fails), each
+    rank's launches, walls (median and spread) and seconds in
+    collectives, beside the unsharded frame and step walls; then
+    `render_image_multihost` on `make_pod_mesh()` (LOCAL_WORLD_SIZE
+    `local_world_size`, or unset: the card count) against `render`,
+    bit-equal where its sp is 1, else within 1e-5 once the gamma is
+    undone (image ** 2.2). The kernel library is
+    built (`main`) before the ranks start."""
+    from tracer_torch.dist import launch, sharding
+
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    target = torch.zeros((W * H, 3))
+    one = sharding.make_ray_mesh(1, 1)
+    film, fwalls, _ = walls_of(torch.no_grad()(
+        lambda: renderer.render_pixels(scene, cam, cfg, W, H, pid, spp,
+                                       cfg.seed) / spp), reps)
+    film = film.cpu().numpy()
+    res, swalls, slaunch = walls_of(lambda: sharding.train_step(
+        scene, cam, cfg, W, H, pid, target, spp, 0, one), reps)
+    want_step = step_result(*res)
+    want_gnorm, want_grads = step_grads(scene, cam, cfg, pid, target, spp,
+                                        one)
+    image = renderer.render(scene, cam, cfg)
+    say("dist_unsharded", size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
+        frame_s=spread(fwalls), step_s=spread(swalls),
+        step_launches=slaunch, grad_norm=f"{want_gnorm:.6g}")
+    t0 = time.perf_counter()
+    ranks = launch.run(dist_rank, n, (shapes, spp, reps, True),
+                       device="cuda", backend=backend,
+                       local_world_size=local_world_size)
+    group_s = time.perf_counter() - t0
+    # a rank takes card rank % count: gloo's two ranks share the one card
+    # of the driver's machine, and take two of a machine with more
+    cards = len({r["card"] for r in ranks})
+    variant = f"{backend}-{cards}-card" + "s" * (cards > 1)
+    for shape in shapes:
+        err = float(np.abs(ranks[0][shape]["film"] - film).max())
+        if err > (0.0 if shape[1] == 1 else 1e-5):
+            raise AssertionError(f"dist {shape}: film err {err}")
+        step_err = grad_rel = 0.0
+        for r in ranks:
+            got = r[shape]["step"]
+            for k, w in want_step.items():
+                if not np.allclose(got[k], w, rtol=1e-4, atol=1e-7):
+                    raise AssertionError(f"dist {shape} rank {r['rank']}: "
+                                         f"step {k} differs")
+                step_err = max(step_err, float(np.max(np.abs(
+                    np.asarray(got[k]) - w))))
+            gnorm, grads = r[shape]["grads"]
+            if abs(gnorm - want_gnorm) > 1e-4 * want_gnorm:
+                raise AssertionError(f"dist {shape} rank {r['rank']}: grad "
+                                     f"norm {gnorm} vs {want_gnorm}")
+            for k, w in want_grads.items():
+                scale = float(np.abs(w).max()) if w.size else 0.0
+                if not np.allclose(grads[k], w, rtol=1e-4,
+                                   atol=1e-5 * scale):
+                    raise AssertionError(f"dist {shape} rank {r['rank']}: "
+                                         f"gradient of {k} differs")
+                if scale > 0:
+                    grad_rel = max(grad_rel, float(
+                        np.abs(grads[k] - w).max()) / scale)
+        for r in ranks:
+            x = r[shape]
+            say("dist", variant=variant, backend=r["backend"],
+                mesh=f"{shape[0]}x{shape[1]}", rank=r["rank"],
+                card=r["card"], coord=x["coord"],
+                frame_s=spread(x["frame_walls"]),
+                frame_launches=x["frame_launches"],
+                frame_collective_s=f"{x['frame_coll_s']:.4f}",
+                step_s=spread(x["step_walls"]),
+                step_launches=x["step_launches"],
+                step_collective_s=f"{x['step_coll_s']:.4f}")
+        say("dist_check", variant=variant, mesh=f"{shape[0]}x{shape[1]}",
+            film_max_abs_err=f"{err:.3g}",
+            step_max_abs_err=f"{step_err:.3g}",
+            grad_max_err_of_leaf_max=f"{grad_rel:.3g}")
+    pod = ranks[0]["pod"]
+    if pod_shape["sp"] == 1:
+        pod_err, tol = float(np.abs(pod["img"] - image).max()), 0.0
+    else:   # the sample sums' order differs: held on the linear scale
+        pod_err, tol = float(np.abs(pod["img"] ** 2.2
+                                    - image ** 2.2).max()), 1e-5
+    if pod["shape"] != pod_shape or pod_err > tol:
+        raise AssertionError(f"dist pod {pod['shape']}: "
+                             f"render_image_multihost err {pod_err}")
+    say("dist_pod", variant=variant, mesh=pod["shape"],
+        render_image_multihost_max_abs_err=f"{pod_err:.3g}",
+        group_s=f"{group_s:.2f}")
+
+
+def readme_recipe_phase(n):
+    """README's n-card recipe, as written there: n shell-started
+    processes, one a card, joined by JAX_COORDINATOR / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID / LOCAL_RANK / LOCAL_WORLD_SIZE, each running one rank
+    of the dry-run step (`python -m tracer_torch.dist.dryrun`). Every
+    process is waited for, or killed."""
+    from tracer_torch.dist import launch
+
+    port = launch.free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tracer_torch.dist.dryrun"],
+        env=dict(os.environ, JAX_COORDINATOR=f"localhost:{port}",
+                 JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("README recipe failed:\n" + "\n".join(outs))
+    lines = [o.strip().splitlines()[-1] for o in outs]
+    losses = {ln.split("loss=")[1].split()[0] for ln in lines}
+    if len(losses) != 1:
+        raise AssertionError(f"README recipe: the ranks differ: {lines}")
+    say("readme_recipe", ranks=n, loss=losses.pop(),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+def dist_phases(sb):
+    """(a) world size 1 over NCCL, (b) two ranks on the one card over
+    gloo, (c) the dry-run twin on two ranks, (d) with two cards, (b) over
+    NCCL; with four, also four NCCL ranks on (2, 2) and (4, 1), the pod
+    mesh from the card count, `dryrun_multichip(4)` and README's
+    four-card recipe."""
+    from tracer_torch.dist.dryrun import dryrun_multichip
+
+    cards = torch.cuda.device_count()
+    dist_world1_phase(sb, SPP)
+    dist_ranks_phase(sb, SPP, 2, "gloo", [(2, 1), (1, 2)], 1,
+                     {"dp": 2, "sp": 1})
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, device="cuda")
+    say("dryrun", n=2, mesh=res["mesh"], loss=f"{res['loss']:.6g}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if cards < 2:
+        say("dist", variant="nccl-2-cards", ran=False, cards=cards)
+        return
+    dist_ranks_phase(sb, SPP, 2, "nccl", [(2, 1), (1, 2)], 1,
+                     {"dp": 2, "sp": 1})
+    if cards < 4:
+        return
+    dist_ranks_phase(sb, SPP, 4, "nccl", [(2, 2), (4, 1)], None,
+                     {"dp": 1, "sp": 4})
+    t0 = time.perf_counter()
+    res = dryrun_multichip(4, device="cuda")
+    say("dryrun", n=4, mesh=res["mesh"], loss=f"{res['loss']:.6g}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    readme_recipe_phase(4)
+
+
+def plain_ad_phase(label, sb, spp, trainable, reps=3):
+    """(e) The protocol step on the plain autodiff backward
+    (custom_vjp="off": the general bounce under autograd, each bounce but
+    the last rematerialized, the kernels giving only the selections):
+    wall (median of `reps` after a warm-up, and the spread), peak memory,
+    launches (B1, B5, B6 once a bounce; no B2, B3 or B4), and the 1-spp
+    gradients against the plain path (kernels="off") and against
+    custom_vjp="on", within GRAD_RTOL."""
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(max_bounces=BOUNCES, custom_vjp="off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), walls, launches = walls_of(
+        lambda: protocol_grads(scene, cam, cfg, spp, trainable), reps)
+    peak = torch.cuda.max_memory_allocated()
+    n = spp * BOUNCES
+    expect = dict(first_hits=n)
+    if scene.mesh_mat.shape[0] > 0:
+        expect["traverse"] = n
+    if scene.light_pos.shape[0] > 0:
+        expect["shadow"] = n
+    if launches != expect:
+        raise AssertionError(f"plain_ad {label}: launches {launches}, "
+                             f"expected {expect}")
+    for k, gr in grads.items():
+        if not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"plain_ad {label}: {k} grad not finite")
+    if float(grads["mat_diffuse"].abs().max()) == 0.0:
+        raise AssertionError(f"plain_ad {label}: mat_diffuse grad is zero")
+    _, gk = protocol_grads(scene, cam, cfg, 1, trainable)
+    rel = {}
+    for ref, c in (("plain", dict(kernels="off")), ("on", dict(
+            custom_vjp="on"))):
+        _, gp = protocol_grads(scene, cam, dataclasses.replace(cfg, **c), 1,
+                               trainable)
+        for k in trainable:
+            scale = float(gp[k].abs().max())
+            diff = float((gk[k] - gp[k]).abs().max())
+            rel[f"{k}_vs_{ref}"] = diff / scale if scale > 0 else diff
+    for k, v in rel.items():
+        if v > GRAD_RTOL:
+            raise AssertionError(f"plain_ad {label}: 1-spp grad {k} rel err "
+                                 f"{v:.3g} > {GRAD_RTOL}")
+    say("plain_ad", scene=label, size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
+        trainable="+".join(trainable), loss=f"{float(loss):.6g}",
+        step_s=spread(walls), reps=reps, peak_mem_gb=f"{peak / 1e9:.3f}",
+        launches=launches,
+        grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
+
+
 def ptxas_report(info):
     """{kernel: "N registers, S B stack, spills"} from nvcc's -Xptxas -v
     report: each 'Compiling entry function' line names the kernel that the
@@ -2019,7 +2424,7 @@ def ptxas_report(info):
     return out
 
 
-def main():
+def main(dist_only=False):
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2036,6 +2441,14 @@ def main():
         nvcc_seconds=_build.BUILD_SECONDS)
     for k, v in ptxas_report(_build.PTXAS_INFO).items():
         say("ptxas", kernel=k, use=v)
+    if dist_only:
+        dist_phases(zoo.setup_cornell_box(W / H))
+        say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
 
     stats = {k: [] for k in (*KERNEL_MODULES, "first_hits_uv",
                              "shade_scatter_sky")}
@@ -2127,6 +2540,10 @@ def main():
                            ("mesh_verts", "mat_diffuse", "sph_center"))
 
     entry_point_phases(flat_sb, pair_sb, rtw_sb)
+    dist_phases(flat_sb)
+    plain_ad_phase("cornell", flat_sb, SPP, ("mat_diffuse", "sph_center"))
+    plain_ad_phase("flamingo_standin", flam_sb, 4,
+                   ("mesh_verts", "mat_diffuse", "sph_center"))
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,
@@ -2169,5 +2586,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(dist_only="--dist" in sys.argv[1:])
     sys.stdout.flush()

@@ -269,9 +269,20 @@ def test_trace_occupancy_matches_jax(compat):
     np.testing.assert_array_equal(
         rad.numpy(), tintegrator.trace(ts, cfg, o, d, torch.from_numpy(tm),
                                        keys).numpy())
-    # under grad: the plain autodiff backward, not ported
-    d_g = tuple(c.clone().requires_grad_(True) for c in d)
-    with pytest.raises(NotImplementedError,
-                       match="Plain autodiff backward"):
-        tintegrator.trace(ts, cfg, o, d_g, torch.from_numpy(tm), keys,
-                          with_aux=True)
+    # under grad: the plain autodiff path (as the JAX package's), the
+    # same occupancy and radiance, and the custom_vjp="off" gradient
+    grads = []
+    for c_vjp, aux_on in (("on", True), ("off", False)):
+        d_g = tuple(c.clone().requires_grad_(True) for c in d)
+        out = tintegrator.trace(ts, dataclasses.replace(cfg, custom_vjp=c_vjp),
+                                o, d_g, torch.from_numpy(tm), keys,
+                                with_aux=aux_on)
+        if aux_on:
+            out, aux_g = out
+            np.testing.assert_array_equal(aux_g["occupancy"].numpy(),
+                                          occ.numpy())
+            np.testing.assert_array_equal(out.detach().numpy(), rad.numpy())
+        out.sum().backward()
+        grads.append(np.stack([c.grad.numpy() for c in d_g]))
+    assert np.isfinite(grads[0]).all() and np.abs(grads[0]).max() > 0.0
+    np.testing.assert_array_equal(grads[0], grads[1])

@@ -414,11 +414,24 @@ def test_texel_training_stale_pack_guard():
     assert float((s1.tex_data - ts.tex_data).abs().max()) > 1e-4
 
 
-def test_fit_mesh_raises(fit_case):
+def test_fit_mesh_raises(fit_case, tmp_path):
+    """`fit(mesh=)` (it raised before the sharded step was ported; the
+    name is kept): on the (1, 1) mesh, which needs no process group, it is
+    `fit()` bit for bit, and its checkpoint resumes unsharded onto the
+    same trajectory. The multi-rank meshes: tests/test_torch_dist.py."""
+    from tracer_torch.dist.sharding import make_ray_mesh
+
     c = fit_case
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        TT.fit(c["ts0"], tcams(), c["tcfg"], c["target"], steps=1, seed=1,
-               mesh=object(), **KW)
+    args = (tcams(), c["tcfg"], c["target"])
+    s0, _, h0 = TT.fit(c["ts0"], *args, steps=2, seed=1, **KW)
+    ck = str(tmp_path / "ck")
+    s1, _, h1 = TT.fit(c["ts0"], *args, steps=1, seed=1, ckpt_dir=ck,
+                       mesh=make_ray_mesh(1, 1), **KW)
+    s2, _, h2 = TT.fit(c["ts0"], *args, steps=2, seed=1, ckpt_dir=ck, **KW)
+    assert [h["loss"] for h in h1 + h2] == [h["loss"] for h in h0]
+    for k in KW["trainable"]:
+        np.testing.assert_array_equal(getattr(s2, k).numpy(),
+                                      getattr(s0, k).numpy())
 
 
 def test_checkpoint_mismatch_raises(fit_case, tmp_path):

@@ -12,9 +12,11 @@ hit, shade+scatter, BVH walk, soft shadows, bounce adjoint, texel fold);
 on CPU tensors each kernel's plain PyTorch version runs instead. On top of
 them: `train.py` (`fit`: Adam with exact-resume checkpoints in the JAX
 package's layout), `render/film.py` (`Film`, `TileManifest`: the tiled,
-checkpointed render of `render(ckpt_dir=...)`) and `cli.py`
+checkpointed render of `render(ckpt_dir=...)`), `cli.py`
 (`python -m tracer_torch.cli render|probe|benchmark|grad-check|train|
-scenes`).
+scenes`) and `dist/` (the sharded render and training step over a
+(dp, sp) mesh of torch.distributed ranks, the multi-host film, the
+dry-run twin).
 """
 
 from tracer_torch.core.config import RenderConfig

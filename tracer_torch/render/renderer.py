@@ -53,15 +53,17 @@ def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
 
 
 def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
-                  height: int, pixel_ids, nsamples: int, seed: int):
+                  height: int, pixel_ids, nsamples: int, seed: int,
+                  first_sample: int = 0):
     """SUM of `nsamples` sample passes for `pixel_ids` [N] (divide by
-    nsamples for the mean radiance). Returns [N, 3] f32, differentiable
-    with respect to the scene's and the camera's tensors that require grad
-    (`integrator.trace`)."""
+    nsamples for the mean radiance): samples first_sample,
+    first_sample + 1, ... (a sample's random streams depend on its index).
+    Returns [N, 3] f32, differentiable with respect to the scene's and the
+    camera's tensors that require grad (`integrator.trace`)."""
     tables = integrator.prepare(scene)
     acc = torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,
                       device=pixel_ids.device)
-    for s in range(nsamples):
+    for s in range(first_sample, first_sample + nsamples):
         acc = acc + _render_batch(scene, camera, cfg, width, height,
                                   pixel_ids, s, seed, tables)
     return acc

@@ -251,3 +251,157 @@ def mesh_grid(sb, n_meshes: int, n_tris: int = 2_000, seed: int = 0):
                      -2.2 + (r + 0.5) * 4.4 / rows, -1.0))
         sb.add_mesh(m)
     return sb
+
+
+# ---------------------------------------------------------------------------
+# Distribution (tests/test_torch_dist.py): the tiny scenes of
+# tests/test_dist.py, and the body each spawned rank runs (a rank never
+# imports a test module, which imports jax)
+# ---------------------------------------------------------------------------
+
+DIST_W, DIST_H = 16, 8
+DIST_TRAINABLE = ("mat_diffuse", "sph_center")
+
+
+def dist_builder(mod, lit: bool):
+    """tests/test_dist.py's tiny scene (a light, a diffuse and a mirror
+    sphere, a floor, open sky) or, without `lit`, the same without its
+    light, from `mod`, the builder module of either package."""
+    sb = mod.SceneBuilder()
+    sb.dark_sky = False
+    if lit:
+        sb.add_light((-2., 4., 3.), radius=1.0)
+    sb.add_sphere((0., 0., 0.), 1.0, mod.Material(diffuse=(0.8, 0.3, 0.2)))
+    sb.add_sphere((1.8, 0., -1.), 0.7,
+                  mod.Material(mtype=mod.MIRROR, diffuse=(0.9, 0.9, 0.9)))
+    s = sb.add_square((-1., -1., 0.), (1., 0., 0.), (0., 1., 0.), 8., 8.,
+                      mod.Material(diffuse=(0.3, 0.6, 0.9)))
+    s.rotate_x(-90).translate((0., -1.2, 0.))
+    return sb
+
+
+def dist_config(**kw):
+    from tracer_torch.core.config import RenderConfig
+    return RenderConfig(width=DIST_W, height=DIST_H, max_bounces=3,
+                        shadow_rays=2, **kw)
+
+
+def dist_scene_camera(lit: bool):
+    """The port's tiny scene and camera on the CPU."""
+    from tracer_torch.render.camera import default_camera
+    from tracer_torch.scene import builder
+    from tracer_torch.scene.device import compile_scene
+    return (compile_scene(dist_builder(builder, lit), device="cpu"),
+            default_camera(DIST_W / DIST_H, device="cpu"))
+
+
+def dist_grads(scene, camera, nsamples: int, mesh=None):
+    """(image [N, 3] or this rank's block of it, {name: gradient}) of
+    mean(image ** 2) over the whole image with respect to
+    DIST_TRAINABLE, seed 0: unsharded (`mesh` None), or sharded with the
+    gradients summed over the mesh."""
+    import dataclasses
+
+    import torch
+
+    from tracer_torch.dist import sharding
+    from tracer_torch.render.renderer import render_pixels
+
+    cfg = dist_config()
+    leaves = {k: getattr(scene, k).clone().requires_grad_(True)
+              for k in DIST_TRAINABLE}
+    s = dataclasses.replace(scene, **leaves)
+    pids = torch.arange(DIST_W * DIST_H, dtype=torch.int32)
+    if mesh is None:
+        img = render_pixels(s, camera, cfg, DIST_W, DIST_H, pids, nsamples,
+                            0) / nsamples
+        torch.mean(img ** 2).backward()
+    else:
+        img = sharding.render_pixels_sharded(s, camera, cfg, DIST_W, DIST_H,
+                                             pids, nsamples, 0, mesh)
+        (torch.mean(img ** 2) / mesh.shape["dp"]).backward()
+        sharding.all_reduce_grads(mesh, list(leaves.values()))
+    return (img.detach().numpy(),
+            {k: v.grad.numpy() for k, v in leaves.items()})
+
+
+def dist_fit(scene, camera, steps: int, ckpt_dir=None, mesh=None):
+    """`train.fit` of DIST_TRAINABLE towards a black image, 2 spp, lr
+    1e-2, from the scene's own parameters: (history, {name: value})."""
+    import numpy as np
+
+    from tracer_torch import train
+
+    _, _, hist = train.fit(
+        scene, camera, dist_config(),
+        np.zeros((DIST_H, DIST_W, 3), np.float32), list(DIST_TRAINABLE),
+        steps, lr=1e-2, nsamples=2, seed=0, ckpt_dir=ckpt_dir, mesh=mesh)
+    return hist
+
+
+def dist_rank(shapes, nsamples: int, extra: bool = False, ckpt_dir=None):
+    """One rank of tests/test_torch_dist.py's spawned groups. For each
+    (n_dp, n_sp) in `shapes` and each tiny scene ("unlit", "lit"): this
+    rank's sharded block (no grad), the film gathered over dp, the sharded
+    gradients (`dist_grads`), the collectives these three ran
+    (`sharding.collective_spans`), and whether nsamples + 1 samples (not split
+    over sp > 1) and N - 1 pixels (not split over dp > 1) raise. With
+    `extra` (the 4-rank group): `train_step` on (2, 2) from the unlit
+    scene (target black, seed 1), `render_image_multihost` on
+    `make_pod_mesh(n_sp=2)` (2 hosts x 2 ranks) against `render`, and
+    `fit` on (2, 2) for 2 steps writing its checkpoint to `ckpt_dir`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tracer_torch.dist import multihost, sharding
+    from tracer_torch.render.renderer import render
+
+    out = dict(rank=dist.get_rank(), meshes={})
+    scenes = {k: dist_scene_camera(k == "lit") for k in ("unlit", "lit")}
+    pids = torch.arange(DIST_W * DIST_H, dtype=torch.int32)
+    for shape in shapes:
+        mesh = sharding.make_ray_mesh(*shape)
+        res = dict(coord=(mesh.dp_rank, mesh.sp_rank))
+        for name, (scene, cam) in scenes.items():
+            with sharding.collective_spans() as spans:
+                with torch.no_grad():
+                    blk = sharding.render_pixels_sharded(
+                        scene, cam, dist_config(), DIST_W, DIST_H, pids,
+                        nsamples, 0, mesh)
+                film = multihost.gather_film(blk, mesh)
+                _, grads = dist_grads(scene, cam, nsamples, mesh)
+            res[name] = dict(block=blk.numpy(), film=film, grads=grads,
+                             spans=spans)
+        raises = []
+        for n_pix, ns in ((DIST_W * DIST_H - 1, nsamples),
+                          (DIST_W * DIST_H, nsamples + 1)):
+            try:
+                sharding.render_pixels_sharded(
+                    *scenes["unlit"], dist_config(), DIST_W, DIST_H,
+                    pids[:n_pix], ns, 0, mesh)
+                raises.append(False)
+            except ValueError:
+                raises.append(True)
+        res["raises"] = raises
+        out["meshes"][shape] = res
+    if extra:
+        scene, cam = scenes["unlit"]
+        mesh = sharding.make_ray_mesh(2, 2)
+        loss, s1, c1 = sharding.train_step(
+            scene, cam, dist_config(), DIST_W, DIST_H, pids,
+            torch.zeros((DIST_W * DIST_H, 3)), nsamples, 1, mesh)
+        out["train_step"] = dict(
+            loss=float(loss), cam_position=c1.position.numpy(),
+            **{k: getattr(s1, k).numpy()
+               for k in ("sph_center", "sph_radius", "mat_diffuse",
+                         "tex_data", "mesh_verts")})
+        pod = multihost.make_pod_mesh(n_sp=2)
+        scene, cam = scenes["lit"]
+        cfg = dist_config(nsamples=2)
+        img = multihost.render_image_multihost(scene, cam, cfg, pod)
+        out["pod"] = dict(shape=dict(pod.shape),
+                          max_diff=float(np.abs(
+                              img - render(scene, cam, cfg)).max()))
+        out["fit"] = dist_fit(*scenes["unlit"], 2, ckpt_dir, mesh)
+    return out

@@ -12,6 +12,9 @@ renderer.
   (the params by sorted name, Adam's int32 count, the first moments, the
   second moments), so a checkpoint written by `tracer.train.fit` resumes
   here and the reverse;
+- the sharded step (`fit(mesh=)`, `make_step(mesh=)`): the render over a
+  (dp, sp) mesh of ranks (`tracer_torch/dist/`), the gradients summed
+  over the mesh, rank 0 writing the checkpoints;
 - stale-pack safety: while atlas texels (tex_data / nm_data) train, the
   render takes `packed_atlas="off"` (the exact-atlas route), and the
   returned scene's packed twins are replaced by sentinels, since they
@@ -34,6 +37,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed
 
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.render.camera import Camera
@@ -179,30 +183,42 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
     """The optimization step of `fit`: L2 image loss, its gradients by
     `loss.backward()`, one update of `opt` (which holds the params).
 
+    With `mesh` (`dist.sharding.make_ray_mesh`) the render is sharded:
+    each rank's loss is its dp block's share of the mean over all N * 3
+    values (the block's mean over n_dp), the parameter gradients are
+    all-reduced over the whole mesh after `backward()` (JAX's autodiff
+    psums) and the loss over dp, so every rank takes the same update.
+
     Returns step_fn(params, scene, camera, pixel_ids, seed) ->
     (loss, grad_norm), both 0-d tensors on the scene's device; grad_norm
-    is the global norm of the gradients (optax.global_norm)."""
+    is the global norm of the (reduced) gradients (optax.global_norm)."""
+    from tracer_torch.dist import sharding
     from tracer_torch.render.renderer import render_pixels
-
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded training step (mesh=) is not ported yet "
-            "(ROADMAP.md Queue A, 'Distribution')")
 
     target = _as_tensor(target).reshape(-1, 3)
 
     def step_fn(params, scene, camera, pixel_ids, seed):
         tgt = target.to(pixel_ids.device)
+        leaves = [params[k] for k in sorted(params)]
         opt.zero_grad(set_to_none=True)
         s, c = apply_params(scene, camera, params)
-        img = render_pixels(s, c, cfg, width, height, pixel_ids, nsamples,
-                            seed) / nsamples
-        loss = torch.mean((img - tgt) ** 2)
-        loss.backward()
+        if mesh is None:
+            img = render_pixels(s, c, cfg, width, height, pixel_ids,
+                                nsamples, seed) / nsamples
+            loss = torch.mean((img - tgt) ** 2)
+            loss.backward()
+        else:
+            img = sharding.render_pixels_sharded(
+                s, c, cfg, width, height, pixel_ids, nsamples, seed, mesh)
+            nb = img.shape[0]
+            tgt = tgt[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
+            loss = torch.mean((img - tgt) ** 2) / mesh.shape["dp"]
+            loss.backward()
+            sharding.all_reduce_grads(mesh, leaves)
+            loss = sharding.sum_over_dp(mesh, loss.detach())
         gnorm = torch.sqrt(torch.stack([
             torch.sum(p.grad * p.grad) if p.grad is not None
-            else p.new_zeros(()) for p in map(params.get, sorted(params))
-        ]).sum())
+            else p.new_zeros(()) for p in leaves]).sum())
         opt.step()
         return loss.detach(), gnorm
 
@@ -225,7 +241,10 @@ def fit(scene, camera: Camera, cfg: RenderConfig, target,
     optax.adam's betas and eps). With `ckpt_dir`, resumes from
     `ckpt_dir/train.npz` if present (a checkpoint of either package) and
     checkpoints every `ckpt_every` steps and at the last (exact resume).
-    `mesh` (the sharded step) is not ported yet and raises.
+    With `mesh` (`dist.sharding.make_ray_mesh`) every rank runs the
+    sharded step (`make_step`); rank 0 alone writes the checkpoints and
+    every rank loads them, in the same format, so a sharded run resumes
+    unsharded and the reverse.
     """
     width = width or cfg.width
     height = height or cfg.height
@@ -260,7 +279,10 @@ def fit(scene, camera: Camera, cfg: RenderConfig, target,
         if log:
             log(json.dumps(rec))
         if ckpt_path and ((s + 1) % ckpt_every == 0 or s + 1 == steps):
-            _save_ckpt(ckpt_path, s + 1, params, opt)
+            if mesh is None or mesh.rank == 0:
+                _save_ckpt(ckpt_path, s + 1, params, opt)
+            if mesh is not None and mesh.group is not None:
+                torch.distributed.barrier(group=mesh.group)
 
     final = {k: v.detach() for k, v in params.items()}
     scene, camera = apply_params(scene, camera, final)

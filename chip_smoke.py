@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dist    # the build and distribution alone
+    python3 chip_smoke.py --bench   # the build and the rays/s benchmark
 
 Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
 each kernel's registers and spills), holds each against its plain PyTorch
@@ -68,8 +69,9 @@ update alone and the checkpoint's load and save; the tiled checkpointed
 render of Cornell (`[tiled]`: 28 tiles of 128x128 px, bit-equal to the
 direct render, half the tiles deleted and resumed, a pure skip, host 1 of
 2); and the CLI in-process (`[cli]`: render, render --ckpt-dir, probe,
-benchmark --occupancy / --compile / --profile, grad-check, train, scenes,
-then `python -m tracer_torch.cli scenes` in a subprocess). Then
+benchmark --occupancy / --compile / --profile, the bare benchmark,
+grad-check, train, scenes, then `python -m tracer_torch.cli scenes` in a
+subprocess). Then
 distribution (`dist_phases`): (a) a process group of one rank over NCCL,
 whose (1, 1) mesh renders the 16-spp Cornell frame bit-equal to
 `render_pixels / 16` and whose `fit(mesh=)` equals `fit()` bit for bit
@@ -88,7 +90,14 @@ plain autodiff backward (`plain_ad_phase`, custom_vjp="off"): the Cornell
 16-spp protocol step and flamingo_standin at 4 spp (mesh_verts), their
 walls, peak memory, launches (B1 once a bounce, B5 and B6 on the mesh
 scene; no B2, B3 or B4) and 1-spp gradients against kernels="off" and
-against custom_vjp="on".
+against custom_vjp="on". Last, the rays/s benchmark (`bench_phase`):
+`tracer_torch.bench.main()` at 850x480, 16 spp, 6 bounces, 3 reps, with
+BENCH_SCENES=1 (its JSON on a `[bench]` line, its launches against what
+its calls must launch, its peak memory), then its timed bodies one call at
+a time: the walls of 3 synced calls (median, spread) of the frame and of
+both protocol steps with one call's launches, the host synchronisations
+of one call (torch's sync debug mode), the peak memory of one step and of
+3 steps queued, and the 1-spp frame scalar against kernels="off".
 Every phase prints one line; any failure is an uncaught exception and a
 non-zero exit. The last two
 lines are a JSON record of the kernels and `{"ok": true, ...}`.
@@ -121,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -890,6 +900,28 @@ def launch_counts(*names):
     return {k: KERNEL_MODULES[k].LAUNCHES for k in names}
 
 
+def call_launches(scene, cfg, spp, trainable=()):
+    """Kernel launches of one frame of `spp` samples on the hand-written
+    route (with `trainable`, of one protocol step): each sample runs
+    every kernel of its route once a bounce, B3 once a bounce in the
+    backward, B4 once a sample where tex_data trains and the atlas has
+    texel rows to fold onto. Kernels not launched are left out."""
+    n = spp * cfg.max_bounces
+    out = dict(first_hits=n,
+               shade_scatter=n if integrator._fused(scene, cfg) else 0,
+               bounce_bwd=n if trainable else 0,
+               sorted_fold=spp if ("tex_data" in trainable
+                                   and scene.tex_data.shape[0] > 1) else 0,
+               traverse=n if scene.mesh_mat.shape[0] > 0 else 0,
+               shadow=n if scene.light_pos.shape[0] > 0 else 0)
+    return {k: v for k, v in out.items() if v}
+
+
+def launched(*names):
+    """The launch counts of `names` that are not 0."""
+    return {k: v for k, v in launch_counts(*names).items() if v}
+
+
 def protocol_phase(label, sb, spp, trainable=TRAINABLE):
     """fwd+bwd of the protocol loss through render_pixels and
     loss.backward(), with launch counts, then the 1-spp gradients against
@@ -908,12 +940,8 @@ def protocol_phase(label, sb, spp, trainable=TRAINABLE):
     loss, grads = protocol_grads(scene, cam, cfg, spp, trainable)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = launch_counts("first_hits", "shade_scatter", "bounce_bwd",
-                             "sorted_fold")
-    folds = spp if ("tex_data" in trainable
-                    and scene.tex_data.shape[0] > 1) else 0
-    expect = {"first_hits": spp * BOUNCES, "shade_scatter": spp * BOUNCES,
-              "bounce_bwd": spp * BOUNCES, "sorted_fold": folds}
+    launches = launched(*KERNEL_MODULES)
+    expect = call_launches(scene, cfg, spp, trainable)
     if launches != expect:
         raise AssertionError(f"protocol {label}: launches {launches}, "
                              f"expected {expect}")
@@ -1025,14 +1053,10 @@ def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
     img = renderer.render(scene, cam, cfg)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    launches = launch_counts("first_hits", "shade_scatter", "traverse",
-                             "shadow")
+    launches = launched(*KERNEL_MODULES)
     meshes = scene.mesh_mat.shape[0] > 0
     fused = integrator._fused(scene, cfg)
-    expect = dict(first_hits=spp * BOUNCES,
-                  shade_scatter=spp * BOUNCES if fused else 0,
-                  traverse=spp * BOUNCES if meshes else 0,
-                  shadow=spp * BOUNCES if scene.light_pos.shape[0] else 0)
+    expect = call_launches(scene, cfg, spp)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
@@ -1595,6 +1619,7 @@ def cli_phase():
         ("compile", ["benchmark", "--compile"]),
         ("profile", ["benchmark", "--profile",
                      os.path.join(out_dir, "profile")]),
+        ("benchmark", ["benchmark"]),
         ("grad_check", ["grad-check"]),
         ("train", ["train", "--steps", "3", "--spp", "4"]),
         ("scenes", ["scenes"]),
@@ -2399,6 +2424,156 @@ def plain_ad_phase(label, sb, spp, trainable, reps=3):
         grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
 
 
+# ---------------------------------------------------------------------------
+# The rays/s benchmark (tracer_torch/bench.py)
+# ---------------------------------------------------------------------------
+
+# bench.py:129-139, the keys of its JSON line
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "total_rays_per_s",
+              "fwdbwd_primary_rays_per_s", "fwdbwd_no_texgrad_rays_per_s",
+              "config", "device")
+
+
+def host_syncs(fn):
+    """(count, {file:line: count}) of the host synchronisations one call of
+    `fn` makes, from torch's sync debug mode (a warning each, attributed
+    to the Python line that made it)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = {}
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            k = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            where[k] = where.get(k, 0) + 1
+    return sum(where.values()), where
+
+
+
+
+def bench_phase(reps=3):
+    """`tracer_torch.bench.main()` at its full size (850x480, 16 spp, 6
+    bounces, 3 reps) with BENCH_SCENES=1, its launch counts reset just
+    before and read just after, its JSON on a `[bench]` line; then, beside
+    it, the timed bodies one call at a time: the walls of `reps` synced
+    calls (median, spread) of the frame and both steps with the launches
+    of one call, the host synchronisations of one frame and one step,
+    the peak memory of one step and of `reps` steps queued as the bench
+    queues them, and the frame scalar at 1 spp against kernels="off"."""
+    from tracer_torch import bench
+    env = dict(BENCH_WIDTH=str(W), BENCH_HEIGHT=str(H), BENCH_SPP=str(SPP),
+               BENCH_REPS=str(reps), BENCH_SCENES="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = bench.main()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launches = launched(*KERNEL_MODULES)
+    peak_main = torch.cuda.max_memory_allocated()
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != ret:
+        raise AssertionError(f"bench: printed {lines!r}")
+    if sorted(ret) != sorted(BENCH_KEYS + ("per_scene_fwd_rays_per_s",)):
+        raise AssertionError(f"bench: keys {sorted(ret)}")
+    if list(ret["per_scene_fwd_rays_per_s"]) != list(bench.SCENES):
+        raise AssertionError(f"bench: scenes {ret['per_scene_fwd_rays_per_s']}")
+    rates = [ret[k] for k in ("value", "total_rays_per_s",
+                              "fwdbwd_primary_rays_per_s",
+                              "fwdbwd_no_texgrad_rays_per_s")]
+    rates += list(ret["per_scene_fwd_rays_per_s"].values())
+    if not all(np.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"bench: rates {rates}")
+    if ret["config"] != f"{W}x{H}@{SPP}spp b{BOUNCES}":
+        raise AssertionError(f"bench: config {ret['config']}")
+
+    # what main ran: the Cornell frame, then both steps, 1 + reps calls
+    # each, then each scene's 1-spp frame, 1 + reps calls
+    b = bench.inputs(zoo.setup_cornell_box(W / H), W, H, SPP, DEV)
+    calls = 1 + reps
+    expect = {}
+
+    def add(counts, times):
+        for k, v in counts.items():
+            expect[k] = expect.get(k, 0) + v * times
+
+    frame_n = call_launches(b.scene, b.cfg, SPP)
+    step_n = call_launches(b.scene, b.cfg, SPP, bench.TRAINABLE)
+    step_nt = call_launches(b.scene, b.cfg, SPP, bench.NO_TEXGRAD)
+    add(frame_n, calls)
+    add(step_n, calls)
+    add(step_nt, calls)
+    scene_n = {}
+    for name in bench.SCENES:
+        s = bench.inputs(zoo.BY_NAME[name](), W, H, 1, DEV, camera=b.camera)
+        scene_n[name] = call_launches(s.scene, s.cfg, 1)
+        add(scene_n[name], calls)
+    if launches != expect:
+        raise AssertionError(f"bench: launches {launches}, expected "
+                             f"{expect}")
+    say("bench", wall_s=f"{wall:.3f}", launches=launches,
+        peak_mem_gb=f"{peak_main / 1e9:.3f}",
+        per_scene_launches_a_frame=scene_n)
+    say("bench", json=lines[0])
+
+    # the timed bodies one call at a time
+    for label, fn, want in (
+            ("frame", lambda: bench.frame_scalar(b), frame_n),
+            ("fwdbwd", lambda: bench.grad_sum(b), step_n),
+            ("fwdbwd_no_texgrad",
+             lambda: bench.grad_sum(b, bench.NO_TEXGRAD), step_nt)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        v, walls, got = walls_of(lambda: float(fn()), reps)
+        peak = torch.cuda.max_memory_allocated()
+        if got != want:
+            raise AssertionError(f"bench {label}: launches {got}, "
+                                 f"expected {want}")
+        if not np.isfinite(v):
+            raise AssertionError(f"bench {label}: scalar {v}")
+        n_sync, msgs = host_syncs(fn)
+        kv = {}
+        if label != "frame":
+            # reps steps queued as timeit queues them: each step's graph
+            # is freed by backward() before the next is queued
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bench.timeit(fn, reps)
+            kv["peak_mem_queued_gb"] = (
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        say("bench", body=label, scalar=f"{v:.9g}", wall_s=spread(walls),
+            reps=reps,
+            primary_rays_per_s_median=f"{W * H * SPP / walls[reps // 2]:.0f}",
+            launches=got, host_syncs=n_sync, sync_at=msgs,
+            peak_mem_gb=f"{peak / 1e9:.3f}", **kv)
+
+    b1 = b._replace(spp=1)
+    got = float(bench.frame_scalar(b1))
+    want = float(bench.frame_scalar(
+        b1._replace(cfg=dataclasses.replace(b1.cfg, kernels="off"))))
+    err = abs(got - want)
+    check("bench 1-spp frame scalar", 0, err)
+    say("bench", check="frame_scalar_1spp_vs_plain", kernels=f"{got:.9g}",
+        plain=f"{want:.9g}", abs_err=f"{err:.3g}", tol=ATOL)
+
+
 def ptxas_report(info):
     """{kernel: "N registers, S B stack, spills"} from nvcc's -Xptxas -v
     report: each 'Compiling entry function' line names the kernel that the
@@ -2424,7 +2599,7 @@ def ptxas_report(info):
     return out
 
 
-def main(dist_only=False):
+def main(dist_only=False, bench_only=False):
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2441,8 +2616,11 @@ def main(dist_only=False):
         nvcc_seconds=_build.BUILD_SECONDS)
     for k, v in ptxas_report(_build.PTXAS_INFO).items():
         say("ptxas", kernel=k, use=v)
-    if dist_only:
-        dist_phases(zoo.setup_cornell_box(W / H))
+    if dist_only or bench_only:
+        if dist_only:
+            dist_phases(zoo.setup_cornell_box(W / H))
+        else:
+            bench_phase()
         say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -2544,6 +2722,7 @@ def main(dist_only=False):
     plain_ad_phase("cornell", flat_sb, SPP, ("mat_diffuse", "sph_center"))
     plain_ad_phase("flamingo_standin", flam_sb, 4,
                    ("mesh_verts", "mat_diffuse", "sph_center"))
+    bench_phase()
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,
@@ -2586,5 +2765,6 @@ def main(dist_only=False):
 
 
 if __name__ == "__main__":
-    main(dist_only="--dist" in sys.argv[1:])
+    main(dist_only="--dist" in sys.argv[1:],
+         bench_only="--bench" in sys.argv[1:])
     sys.stdout.flush()

@@ -7,8 +7,10 @@ thing.
 - `scenes`: the same listing, in-process and through `python -m`.
 - `render` (with and without `--ckpt-dir`), `benchmark --occupancy /
   --compile / --profile`, `train --steps 2` and `grad-check` run to the
-  end (grad-check's four checks hold); the bare `benchmark` exits naming
-  ROADMAP Queue A 1.
+  end (grad-check's four checks hold); the bare `benchmark` prints
+  `bench.py`'s keys (`tracer_torch/bench.py`, at tiny BENCH_* sizes).
+- `benchmark --occupancy`: the per-bounce occupancy equals the JAX CLI's
+  on Cornell and single_sphere.
 - The pose flags: the reference app's startup pose spelled out equals the
   default camera; `--cam-quat` and `--look-at` are exclusive.
 - A pair atlas of one row (the grad-check's 4x4 texture): the fused route
@@ -101,7 +103,7 @@ def test_render(tiled, capsys, tmp_path):
         np.testing.assert_array_equal(load_ppm(direct), img)
 
 
-def test_benchmark_modes(capsys, tmp_path):
+def test_benchmark_modes(capsys, tmp_path, monkeypatch):
     got = last_json(run(capsys, ["benchmark", *SMALL, "--occupancy"]))
     assert got["device"] == "cpu" and got["primary_rays_per_s"] > 0
     assert len(got["occupancy_per_bounce"]) == 2
@@ -114,8 +116,35 @@ def test_benchmark_modes(capsys, tmp_path):
     run(capsys, ["benchmark", *SMALL, "--profile", prof])
     with open(os.path.join(prof, "trace.json")) as f:
         assert "traceEvents" in json.load(f)
-    with pytest.raises(SystemExit, match="Queue A 1"):
-        tcli.main(["benchmark", "--device", "cpu"])
+    # the bare benchmark: tracer_torch.bench at the BENCH_* sizes, which
+    # the CLI's --width/--height/--spp do not change (as in tracer/cli.py)
+    for k, v in dict(BENCH_WIDTH=12, BENCH_HEIGHT=8, BENCH_SPP=1,
+                     BENCH_REPS=1).items():
+        monkeypatch.setenv(k, str(v))
+    monkeypatch.delenv("BENCH_SCENES", raising=False)
+    got = last_json(run(capsys, ["benchmark", *SMALL]))
+    # bench.py:129-139
+    assert sorted(got) == sorted([
+        "metric", "value", "unit", "vs_baseline", "total_rays_per_s",
+        "fwdbwd_primary_rays_per_s", "fwdbwd_no_texgrad_rays_per_s",
+        "config", "device"])
+    assert got["config"] == "12x8@1spp b6" and got["device"] == "cpu"
+    assert got["value"] > 0 and got["fwdbwd_primary_rays_per_s"] > 0
+
+
+@pytest.mark.parametrize("scene", ["cornell_box", "single_sphere"])
+def test_benchmark_occupancy_matches_jax(scene, capsys):
+    """`benchmark --occupancy`'s per-bounce occupancy against the JAX
+    CLI's (`trace(with_aux=True)` on the same rays). Both CLIs divide the
+    jittered pixel coordinate by the width outside a jit, which rounds as
+    torch's division does (not as the renderer's reciprocal multiply);
+    single_sphere's rays leave the scene at its silhouette."""
+    argv = ["benchmark", "--occupancy", "--scene", scene, *SMALL[2:]]
+    jcli.main(argv)
+    want = last_json(capsys.readouterr().out)["occupancy_per_bounce"]
+    got = last_json(run(capsys, argv + ["--device", "cpu"]))
+    assert got["occupancy_per_bounce"] == want
+    assert len(want) == 2 and want[0] == 1.0
 
 
 def test_train(capsys, tmp_path):

@@ -4,6 +4,7 @@ the unit-vector samplers, camera rays, gamma — and the rule that the port
 never imports JAX. Inputs are made from a seed with numpy."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -131,11 +132,18 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(tracer_torch.__path__, "
         "'tracer_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'tracer_torch.bench' in sys.modules\n"
+        # the benchmark run end to end: nothing it imports late is JAX's
+        "from tracer_torch import bench\n"
+        "bench.main(device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tracer' or m.startswith('tracer.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
+    env = dict(os.environ, BENCH_WIDTH="8", BENCH_HEIGHT="6", BENCH_SPP="1",
+               BENCH_REPS="1")
+    env.pop("BENCH_SCENES", None)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, env=env)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"

@@ -12,7 +12,8 @@ kernel's plain PyTorch version).
 
 `render` replaces the reference's `r` key, `benchmark --occupancy` its FPS
 counter, `probe` its MONORAY single-ray trace of one pixel. The bare
-`benchmark` (the JAX package's bench.py) is not ported yet. `train` draws
+`benchmark` runs `tracer_torch.bench` (the JAX package's bench.py), which
+reads its sizes from BENCH_* env vars, as the JAX CLI's does. `train` draws
 its initial perturbation from `torch.Generator().manual_seed(seed + 1)`:
 without JAX the port cannot reproduce `jax.random.normal`, so its start
 differs from `python -m tracer.cli train`'s.
@@ -190,10 +191,9 @@ def cmd_benchmark(args):
     if args.compile_stats:
         return _compile_stats(args)
     if not (args.occupancy or args.profile):
-        raise SystemExit(
-            "benchmark: the rays/s benchmark (the JAX package's bench.py) "
-            "is not ported yet (ROADMAP.md Queue A 1, 'Benchmark'); use "
-            "--occupancy, --profile DIR or --compile")
+        from tracer_torch import bench
+        bench.main(device=args.device)
+        return
 
     from tracer_torch.core import rng
     from tracer_torch.render import integrator
@@ -480,11 +480,9 @@ def main(argv=None):
     pr.add_argument("--y", type=int, default=270)
     pr.set_defaults(fn=cmd_probe)
 
-    b = sub.add_parser("benchmark", help="--occupancy/--profile give "
-                       "per-bounce counters and a torch.profiler trace "
-                       "for any scene, --compile the kernels' build and "
-                       "first-run seconds (the bare rays/s benchmark is "
-                       "not ported yet: ROADMAP.md Queue A 1)")
+    b = sub.add_parser("benchmark", help="Cornell rays/s benchmark; "
+                       "--occupancy/--profile give per-bounce counters "
+                       "and a torch.profiler trace for any scene")
     common(b)
     b.add_argument("--spp", type=int, default=16)
     b.add_argument("--compile", dest="compile_stats",

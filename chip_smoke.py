@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dist    # the build and distribution alone
+    python3 chip_smoke.py --dist    # the build, distribution and the
+                                    # multi-host harness alone
     python3 chip_smoke.py --bench   # the build and the rays/s benchmark
 
 Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
@@ -52,9 +53,21 @@ backward (the replay's vjp, outside the hand-written class) of the
 protocol step on rt_weekend_standin (mat_diffuse, sph_center, tex_data;
 the fold holds every bounce, the last one too) and on flamingo_standin
 (mesh_verts, mat_diffuse, sph_center), with the step's median wall time
-over reps and its spread, the peak memory, the launch counts and the
-1-spp gradients against the plain path, and a profile of the
-rt_weekend_standin step (device busy, idle share, launches, top kernels).
+over reps and its spread, the peak memory, the launch counts, whether
+every rep's gradients have the same bits, the same step with the row
+sums on `index_add_` in turns beside it, and the 1-spp gradients against
+the plain path, and a profile of the rt_weekend_standin step (device
+busy, idle share, launches, top kernels). Then the replay's row sums
+(`kernels/rowsum.py`, the row-sum kernel of `csrc/row_sum.cu`): the
+kernels left in the general and the plain autodiff steps whose names say
+that they sum by atomics or scatter (`[atomics]`, on the kernel's route
+and on `index_add_`'s, with torch's deterministic mode once as a
+diagnostic, restored afterwards), and the row-sum kernel against its
+plain version (`index_add_`) on the row sums those steps make at every
+table shape: sphere and material rows, the lit textured box's quads and
+1024² atlases, tiled_wall_3000's 3,000 quads and flamingo_standin's mesh
+vertices (`[rowsum]`: error, bit-equality of two calls, ms, device ms,
+`index_add_`'s ms, the byte bound).
 Last, the port's entry points (`entry_point_phases`), each path with the
 launch counts reset just before it and read just after: `train.fit` at
 850x480, 6 bounces (`[train]` lines: Cornell at 16 spp with mat_diffuse,
@@ -63,7 +76,7 @@ Adam state; the textured Cornell at 16 spp with tex_data and mat_diffuse,
 whose guard renders the exact atlas, so B2 is not launched, with the
 first step's gradients against the plain path and the stale-pack check;
 rt_weekend_standin at 4 spp through the general backward, whose resume is
-printed, not held, since `index_add_` sums with float atomics), each with
+held bit-equal too: its row sums run in a fixed order), each with
 its losses, grad norms, step walls, peak memory, launches a step, the Adam
 update alone and the checkpoint's load and save; the tiled checkpointed
 render of Cornell (`[tiled]`: 28 tiles of 128x128 px, bit-equal to the
@@ -89,8 +102,9 @@ are held against the unsharded step's. Last, the
 plain autodiff backward (`plain_ad_phase`, custom_vjp="off"): the Cornell
 16-spp protocol step and flamingo_standin at 4 spp (mesh_verts), their
 walls, peak memory, launches (B1 once a bounce, B5 and B6 on the mesh
-scene; no B2, B3 or B4) and 1-spp gradients against kernels="off" and
-against custom_vjp="on". Last, the rays/s benchmark (`bench_phase`):
+scene, the row sums; no B2, B3 or B4), whether every rep's gradients
+have the same bits, and 1-spp gradients against kernels="off" and
+against custom_vjp="on". Then the rays/s benchmark (`bench_phase`):
 `tracer_torch.bench.main()` at 850x480, 16 spp, 6 bounces, 3 reps, with
 BENCH_SCENES=1 (its JSON on a `[bench]` line, its launches against what
 its calls must launch, its peak memory), then its timed bodies one call at
@@ -98,9 +112,14 @@ a time: the walls of 3 synced calls (median, spread) of the frame and of
 both protocol steps with one call's launches, the host synchronisations
 of one call (torch's sync debug mode), the peak memory of one step and of
 3 steps queued, and the 1-spp frame scalar against kernels="off".
-Every phase prints one line; any failure is an uncaught exception and a
-non-zero exit. The last two
-lines are a JSON record of the kernels and `{"ok": true, ...}`.
+Last, the multi-host weak-scaling harness (`multihost_phase`,
+`tracer_torch.bench_multihost.driver()`: gloo ranks sharing the one card,
+one rank a host, a plumbing run; with `--dist` on four cards, NCCL at 2
+ranks a host), its JSON on a line of its own, its keys against
+MULTIHOST_SCALING.json's. Every phase prints one line; any failure is
+an uncaught exception and a non-zero exit. The last three lines are the
+card's name and power limit (nvidia-smi), a JSON record of the seven
+kernels and `{"ok": true, ...}`.
 
 Tolerances: discrete outputs (winning primitive, material, texel indices,
 active flags) must match exactly; forward float outputs within atol=2e-5,
@@ -111,8 +130,10 @@ with --fmad=false; cosf/sinf may differ by an ulp). Its tables, the fold
 and the gradients: f32 summation order (the kernels sum in a fixed tree
 and sorted order, the plain versions in cuBLAS's and stream order): the
 tables within 1e-5 of their largest entry, the fold rtol 1e-5 / atol
-1e-5 * max|plain| (NaN and inf where the plain fold has them), max
-relative error 1e-4 for the 1-spp gradients. B5's (t, tri) and B6's
+1e-5 * max|plain| (NaN and inf where the plain fold has them), the row
+sums (and their plain version) against float64 sums within their f32
+summation error bounds (`rowsum_check`), max relative error 1e-4 for
+the 1-spp gradients. B5's (t, tri) and B6's
 factors must match exactly. B1's sphere-UV index and B2's image sky: 0
 discrete mismatches (a mismatch where B1's texture coordinates differ
 from the plain version's by at most an ulp of acos / atan2 would be
@@ -148,6 +169,7 @@ from tracer_torch.io.ppm import write_ppm  # noqa: E402
 from tracer_torch.kernels import _build  # noqa: E402
 from tracer_torch.kernels import fold as kfold  # noqa: E402
 from tracer_torch.kernels import intersect as kintersect  # noqa: E402
+from tracer_torch.kernels import rowsum as krowsum  # noqa: E402
 from tracer_torch.kernels import shade as kshade  # noqa: E402
 from tracer_torch.kernels import shade_bwd as kbwd  # noqa: E402
 from tracer_torch.kernels import shadow as kshadow  # noqa: E402
@@ -888,7 +910,7 @@ def protocol_grads(scene, cam, cfg, spp, trainable):
 
 KERNEL_MODULES = dict(first_hits=kintersect, shade_scatter=kshade,
                       bounce_bwd=kbwd, sorted_fold=kfold,
-                      traverse=ktraverse, shadow=kshadow)
+                      traverse=ktraverse, shadow=kshadow, row_sum=krowsum)
 
 
 def reset_launches():
@@ -1233,6 +1255,64 @@ def sky_uv_phase(label, scene, stats):
         state = nxt
 
 
+# the tables a replayed bounce gathers rows of, and the scene fields each
+# is built from (`integrator._geo_packs`): a table that requires grad
+# sends its lanes' cotangents through one row sum a bounce
+ROW_TABLES = dict(
+    sph_pack=("sph_center", "sph_radius", "mat_mb"),
+    quad_pack=("quad_v0", "quad_er", "quad_eu", "quad_tan", "quad_bitan",
+               "mat_mb"),
+    matf=("mat_texscale", "mat_check1", "mat_check2", "mat_diffuse",
+          "mat_light_color", "mat_light_intensity", "mat_emissive",
+          "mat_transparency", "mat_ior"))
+
+
+def rowsum_launches(scene, trainable, spp):
+    """Row sums (`kernels/rowsum.py`) of one protocol step on the general
+    backward or the plain autodiff route, whose bounces gather the rows
+    of each table that requires grad (`integrator._gather_hit_p`): mat_mb
+    twice in `_geo_packs`, the sphere, quad and material rows once each,
+    the mesh vertices of the three corners. A row sum runs where its
+    rows reach the loss: the geometry's rows (hit point and normal) on
+    the last bounce only through the direct light of a lit scene, the
+    material rows on every bounce (emission). Both routes read no texel
+    row whose atlas trains here (the replay takes the recorded texels; no
+    plain autodiff phase trains texels)."""
+    t = set(trainable)
+    counts = dict(sph_pack=scene.sph_center.shape[0],
+                  quad_pack=scene.quad_v0.shape[0],
+                  matf=scene.mat_diffuse.shape[0])
+    used = {k for k, fields in ROW_TABLES.items()
+            if counts[k] > 0 and t & set(fields)}
+    geo = (2 if "mat_mb" in t else 0) + len(used - {"matf"})
+    if scene.mesh_mat.shape[0] > 0 and "mesh_verts" in t:
+        geo += 3
+    lit = scene.light_pos.shape[0] > 0
+    return spp * (BOUNCES * ("matf" in used)
+                  + (BOUNCES if lit else BOUNCES - 1) * geo)
+
+
+def index_add_route(idx, g, rows, kernels="auto"):
+    """The row sums on their plain version (`index_add_`, float atomics on
+    the card): the general backward's route before the row-sum kernel."""
+    return krowsum.row_sum_plain(idx, g, rows)
+
+
+@contextlib.contextmanager
+def row_sum_as(fn):
+    """Run the block with `krowsum.row_sum` replaced by `fn`."""
+    real = krowsum.row_sum
+    krowsum.row_sum = fn
+    try:
+        yield
+    finally:
+        krowsum.row_sum = real
+
+
+def grads_equal(a, b):
+    return a.keys() == b.keys() and all(bit_equal(a[k], b[k]) for k in a)
+
+
 def general_protocol_phase(label, sb, spp, trainable, reps=3):
     """fwd+bwd of the protocol loss on a scene outside the hand-written
     class (lights, meshes, an image sky, textured spheres): the record
@@ -1241,8 +1321,13 @@ def general_protocol_phase(label, sb, spp, trainable, reps=3):
     the step's wall time (median of `reps` after a warm-up, and the
     spread), the peak memory, the launch counts (B3 is 0: no hand-written
     sweep here; B4 once a sample when tex_data trains, its stream holding
-    every bounce, the last one too, on a lit scene), and the 1-spp
-    gradients against the same backward on the plain path."""
+    every bounce, the last one too, on a lit scene; the row sums one a
+    gathered table a bounce), whether every rep's gradients have the same
+    bits (`deterministic`), and the 1-spp gradients against the same
+    backward on the plain path. Beside it, in the same call and in turns
+    (kernel, index_add_, index_add_, kernel, ...), the same step with the
+    row sums on their plain version, `index_add_`: its walls and whether
+    its gradients repeat."""
     scene = compile_scene(sb, device=DEV)
     if replay_bwd.hand_bwd_ok(scene, RenderConfig()):
         raise AssertionError(f"{label}: inside the hand-written class")
@@ -1255,33 +1340,50 @@ def general_protocol_phase(label, sb, spp, trainable, reps=3):
         segs.append(len(idxs))
         return fold(data_g, idxs, gs, kernels)
 
+    routes = dict(kernel=krowsum.row_sum, index_add=index_add_route)
+
+    def step(route):
+        with row_sum_as(routes[route]):
+            return protocol_grads(scene, cam, cfg, spp, trainable)
+
     kfold.fold_updates = spy
     try:
-        protocol_grads(scene, cam, cfg, spp, trainable)    # warm-up
+        step("kernel")                                     # warm-up
+        step("index_add")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for r in range(reps):
-            if r == 0:
+        walls = dict(kernel=[], index_add=[])
+        runs = dict(kernel=[], index_add=[])
+        for i in range(2 * reps):
+            route = ("kernel", "index_add")[(i + 1) // 2 % 2]
+            if i == 0:
                 reset_launches()
                 segs.clear()
             t0 = time.perf_counter()
-            loss, grads = protocol_grads(scene, cam, cfg, spp, trainable)
+            loss, grads = step(route)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if r == 0:
+            walls[route].append(time.perf_counter() - t0)
+            runs[route].append(grads)
+            if i == 0:
                 launches = launch_counts(*KERNEL_MODULES)
                 fold_segs = sorted(set(segs))
         peak = torch.cuda.max_memory_allocated()
     finally:
         kfold.fold_updates = fold
+    grads = runs["kernel"][0]
+    same = {r: all(grads_equal(runs[r][0], x) for x in runs[r][1:])
+            for r in runs}
+    if not same["kernel"]:
+        raise AssertionError(f"general protocol {label}: two backward "
+                             f"passes gave different gradients")
     lit = scene.light_pos.shape[0] > 0
     meshes = scene.mesh_mat.shape[0] > 0
     texels = "tex_data" in trainable and scene.tex_data.shape[0] > 1
     expect = dict(first_hits=spp * BOUNCES, shade_scatter=spp * BOUNCES,
                   bounce_bwd=0, sorted_fold=spp if texels else 0,
                   traverse=spp * BOUNCES if meshes else 0,
-                  shadow=spp * BOUNCES if lit else 0)
+                  shadow=spp * BOUNCES if lit else 0,
+                  row_sum=rowsum_launches(scene, trainable, spp))
     if launches != expect:
         raise AssertionError(f"general protocol {label}: launches "
                              f"{launches}, expected {expect}")
@@ -1308,17 +1410,206 @@ def general_protocol_phase(label, sb, spp, trainable, reps=3):
         if rel[k] > GRAD_RTOL:
             raise AssertionError(f"general protocol {label}: {k} 1-spp "
                                  f"grad rel err {rel[k]:.3g} > {GRAD_RTOL}")
-    walls.sort()
+    kw = sorted(walls["kernel"])
     say("general_protocol", scene=label, size=f"{W}x{H}", spp=spp,
         bounces=BOUNCES, trainable="+".join(trainable),
         loss=f"{float(loss):.6g}",
-        step_s_median=f"{walls[len(walls) // 2]:.4f}",
-        step_s_min=f"{walls[0]:.4f}", step_s_max=f"{walls[-1]:.4f}",
-        reps=reps, peak_mem_gb=f"{peak / 1e9:.3f}", launches=launches,
+        step_s_median=f"{kw[len(kw) // 2]:.4f}",
+        step_s_min=f"{kw[0]:.4f}", step_s_max=f"{kw[-1]:.4f}",
+        reps=reps, deterministic=same["kernel"],
+        index_add_step_s=spread(sorted(walls["index_add"])),
+        index_add_deterministic=same["index_add"],
+        peak_mem_gb=f"{peak / 1e9:.3f}", launches=launches,
         fold_segments=fold_segs,
         grad_max_abs={k: f"{float(v.abs().max()):.3g}"
                       for k, v in grads.items()},
         grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
+    return launches
+
+
+# the row-sum kernels (csrc/row_sum.cu); one call also runs the zero fill
+ROWSUM_KERNELS = ("rs_digit_counts", "rs_count_scan", "rs_scatter",
+                  "rs_chunk_maps", "rs_carries", "rs_runs")
+ROWSUM_OPS = ROWSUM_KERNELS + ("Memset",)
+# kernel names of sums by atomics or by scatter: index_add_ runs
+# `indexFuncSmallIndex` / `indexFuncLargeIndex` (float atomics) on the
+# card; index_put_'s accumulate runs `indexing_backward_kernel`, which
+# sorts and sums a run in a warp
+ATOMIC_NAMES = ("index_add", "indexfunc", "scatter_add", "index_put",
+                "atomic", "indexing_backward")
+ATOMIC_SUMS = ("index_add", "indexfunc", "scatter_add")
+
+
+def rowsum_check(name, got, want, idx, g):
+    """The row-sum kernel's sums against the float64 sums of the same
+    cotangents, each within its f32 summation error bound,
+    depth * 2^-24 * (the sum of |g| over the row's lanes), depth a bound
+    on the chain of f32 additions a lane's cotangent passes through in
+    the kernel (csrc/row_sum.cu: in each of its three scans PER in a
+    thread, 5 in a warp's scan and the 8 warps before it; and the chunks'
+    carries, one a chunk); the plain
+    version's (`index_add_`, any order) within (lanes - 1) * 2^-24 * that
+    sum. Returns (max |kernel - plain|, max |plain|)."""
+    li = idx.reshape(-1).long()
+    g64 = g.double()
+    exact = torch.zeros(want.shape, dtype=torch.float64,
+                        device=DEV).index_add_(0, li, g64)
+    absum = torch.zeros_like(exact).index_add_(0, li, g64.abs())
+    lanes = torch.bincount(li, minlength=want.shape[0]).double()[:, None]
+    nf = -(-idx.numel() // krowsum.CHUNK)
+    depth = 3 * (krowsum.CHUNK // 256 + 5 + 8) + nf
+    u = 2.0 ** -24
+    bad_k = (got.double() - exact).abs() > depth * u * absum
+    bad_p = (want.double() - exact).abs() > torch.clamp_min(
+        lanes - 1, 0) * u * absum
+    if bool(bad_k.any()) or bool(bad_p.any()):
+        raise AssertionError(
+            f"{name}: {int(bad_k.sum())} kernel and {int(bad_p.sum())} "
+            f"plain sums of {want.numel()} beyond their f32 summation "
+            f"bounds (max |kernel - f64| "
+            f"{float((got.double() - exact).abs().max()):.3g})")
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err, scale
+
+
+def capture_row_sums(scene, cfg, trainable):
+    """The row sums of one 1-spp protocol step, as the backward made them:
+    {(rows, columns): (idx, g)}, of each table shape the call with the
+    largest cotangent (then the most lanes)."""
+    cam = default_camera(W / H, device=DEV)
+    calls, score = {}, {}
+    real = krowsum.row_sum
+
+    def spy(idx, g, rows, kernels="auto"):
+        key = (rows, g.shape[1])
+        sc = (float(g.abs().max()) if g.numel() else 0.0, idx.numel())
+        if key not in calls or sc > score[key]:
+            calls[key], score[key] = (idx.clone(), g.clone()), sc
+        return real(idx, g, rows, kernels)
+
+    with row_sum_as(spy):
+        protocol_grads(scene, cam, cfg, 1, trainable)
+    return calls
+
+
+def rowsum_phase(cases, stats):
+    """The row-sum kernel against its plain version (`index_add_`) on the
+    row sums a protocol step makes on the card (captured from a 1-spp
+    step): the small tables (sphere and material rows of
+    rt_weekend_standin and flamingo_standin; the textured Cornell box's
+    quads, spheres and mat_mb, with a light added so that the geometry's
+    rows get a gradient, on the plain autodiff route), tiled_wall_3000's
+    3,000 quads and material rows, flamingo_standin's mesh vertices, and
+    the lit textured box's 1024² atlases on the plain autodiff route. For
+    each: the sums against float64 sums, within their f32 summation error
+    bounds (`rowsum_check`), max |err| against the plain version,
+    bit-equality of two calls, the
+    kernel's ms (CUDA events, its host work included) and device ms
+    (profiler), `index_add_`'s ms on the same inputs, and the bound
+    (the larger of idx, cotangents and table over 3.35 TB/s and N * C
+    additions over 67 TFLOP/s: the bytes). `cases`: (label,
+    scene builder, trainable, custom_vjp)."""
+    for label, sb, trainable, custom_vjp in cases:
+        scene = compile_scene(sb, device=DEV)
+        cfg = RenderConfig(max_bounces=BOUNCES, custom_vjp=custom_vjp)
+        calls = capture_row_sums(scene, cfg, trainable)
+        if not calls:
+            raise AssertionError(f"rowsum {label}: no row sum in the step")
+        for (rows, cols), (idx, g) in sorted(calls.items()):
+            def run(mode, idx=idx, g=g, rows=rows):
+                return krowsum.row_sum(idx, g, rows, kernels=mode)
+
+            got, want = run("auto"), run("off")
+            err, scale = rowsum_check(f"row_sum {label} {rows}x{cols}",
+                                      got, want, idx, g)
+            if not bit_equal(got, run("auto")):
+                raise AssertionError(f"row_sum {label} {rows}x{cols}: two "
+                                     f"calls differ")
+            ms = timed(lambda: run("auto"), 20)
+            lms = timed(lambda: torch.zeros_like(want).index_add_(
+                0, idx.long(), g), 20)
+            pms = timed(lambda: run("off"), 20)
+            # each lane's cotangent added once: N * C f32 additions
+            bms, by = bound2(nbytes(idx, g, want), idx.numel() * cols)
+            say("rowsum", scene=label, table=f"{rows}x{cols}",
+                lanes=idx.numel(), max_abs_err=f"{err:.3g}",
+                max_abs_plain=f"{scale:.3g}", deterministic=True,
+                ms=f"{ms:.4f}",
+                device_ms=device_ms(lambda: run("auto"), 20, ROWSUM_OPS),
+                index_add_ms=f"{lms:.4f}", plain_ms=f"{pms:.4f}",
+                bound_ms=f"{bms:.4f}", bound_by=by, passes=max(1, (
+                    (max(rows - 1, 1)).bit_length() + 7) // 8))
+            stats["row_sum"].append((f"{label} {rows}x{cols}",
+                                     Rec(err, ms, pms, bms, by,
+                                         library_ms=lms)))
+
+
+def lit_textured_cornell():
+    """The textured Cornell box with a small light under its ceiling: a
+    scene whose geometry and normal maps get a gradient (in the unlit box
+    the radiance is constant in them between discrete changes)."""
+    sb = fill_cornell_textures(zoo.setup_cornell_box(W / H), FULL)
+    sb.add_light((0.0, 1.5, 0.5), radius=0.3, color=(1.0, 1.0, 1.0))
+    return sb
+
+
+def atomics_phase(label, sb, spp, trainable, custom_vjp="on"):
+    """The kernels of one protocol step (the general backward, or the
+    plain autodiff route with custom_vjp="off") whose names say that they
+    sum by atomics or scatter (ATOMIC_NAMES), with their launches and
+    device ms, on the row-sum kernel's route and on the `index_add_`
+    route; the row-sum kernels' launches and device ms. Fails if an
+    atomic sum (ATOMIC_SUMS) is left on the kernel's route.
+    Then, as a diagnostic, the same step once under
+    torch.use_deterministic_algorithms(True, warn_only=True), restored
+    afterwards: the warnings it raises name the step's ops that have no
+    deterministic implementation on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(max_bounces=BOUNCES, custom_vjp=custom_vjp)
+    out = {}
+    for route, fn in (("kernel", krowsum.row_sum),
+                      ("index_add", index_add_route)):
+        with row_sum_as(fn):
+            protocol_grads(scene, cam, cfg, spp, trainable)   # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                protocol_grads(scene, cam, cfg, spp, trainable)
+                torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+        hits = [(e.key[:60], e.count,
+                 f"{e.self_device_time_total / 1e3:.3f}ms") for e in evs
+                if any(a in e.key.lower() for a in ATOMIC_NAMES)]
+        rs = [e for e in evs if any(k in e.key for k in ROWSUM_KERNELS)]
+        rs_ms = sum(e.self_device_time_total for e in rs) / 1e3
+        out[route] = dict(atomic_kernels=hits,
+                          rowsum_kernel_launches=sum(e.count for e in rs),
+                          rowsum_device_ms=f"{rs_ms:.3f}")
+    bad = [h for h in out["kernel"]["atomic_kernels"]
+           if any(a in h[0].lower() for a in ATOMIC_SUMS)]
+    if bad:
+        raise AssertionError(f"atomics {label}: atomic row sums left on "
+                             f"the kernel route: {bad}")
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            protocol_grads(scene, cam, cfg, spp, trainable)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    notes = sorted({str(w.message).split("\n")[0][:100] for w in caught
+                    if "determinis" in str(w.message)})
+    say("atomics", scene=label, spp=spp, custom_vjp=custom_vjp,
+        trainable="+".join(trainable), kernel_route=out["kernel"],
+        index_add_route=out["index_add"],
+        deterministic_mode_diagnostic="on, then restored to "
+        f"{prev[0]}", deterministic_mode_warnings=notes)
 
 
 # ---------------------------------------------------------------------------
@@ -2006,7 +2297,7 @@ def entry_point_phases(flat_sb, pair_sb, rtw_sb):
     """Training (`train.fit`), the tiled checkpointed render and the CLI,
     each path with the counts reset just before it and read just after."""
     n = SPP * BOUNCES
-    none = dict(traverse=0, shadow=0)
+    none = dict(traverse=0, shadow=0, row_sum=0)
     train_phase("cornell", flat_sb, SPP,
                 ("mat_diffuse", "sph_center", "cam_quaternion"),
                 dict(mat_diffuse=0.05, sph_center=0.02,
@@ -2021,20 +2312,23 @@ def entry_point_phases(flat_sb, pair_sb, rtw_sb):
                 expect=dict(first_hits=n, shade_scatter=0, bounce_bwd=n,
                             sorted_fold=SPP, **none),
                 resume_exact=True, grad_check=True, stale_check=True)
-    # the general backward: its row gradients sum with index_add_'s float
-    # atomics, so the resumed run is printed against the uninterrupted
-    # one, not held to it. Its loss need not fall: each sphere sits under
+    # the general backward: its row sums run in a fixed order (the
+    # row-sum kernel), so the resumed run is held bit-equal to the
+    # uninterrupted one. Its loss need not fall: each sphere sits under
     # a light, and Adam's first steps (about lr a component) move the
     # spheres' shadows, whose visibility the gradient does not see
     rtw_spp = 4
-    train_phase("rt_weekend_standin", rtw_sb, rtw_spp,
-                ("mat_diffuse", "sph_center", "tex_data"),
+    rtw_trainable = ("mat_diffuse", "sph_center", "tex_data")
+    train_phase("rt_weekend_standin", rtw_sb, rtw_spp, rtw_trainable,
                 dict(mat_diffuse=0.05, sph_center=0.02, tex_data=0.05),
                 steps=3, lr=1e-2,
                 expect=dict(first_hits=rtw_spp * BOUNCES, shade_scatter=0,
                             bounce_bwd=0, sorted_fold=rtw_spp, traverse=0,
-                            shadow=rtw_spp * BOUNCES),
-                resume_exact=False, must_fall=False)
+                            shadow=rtw_spp * BOUNCES,
+                            row_sum=rowsum_launches(
+                                compile_scene(rtw_sb, device=DEV),
+                                rtw_trainable, rtw_spp)),
+                resume_exact=True, must_fall=False)
     tiled_phase("cornell", flat_sb, SPP)
     cli_phase()
 
@@ -2378,19 +2672,32 @@ def plain_ad_phase(label, sb, spp, trainable, reps=3):
     (custom_vjp="off": the general bounce under autograd, each bounce but
     the last rematerialized, the kernels giving only the selections):
     wall (median of `reps` after a warm-up, and the spread), peak memory,
-    launches (B1, B5, B6 once a bounce; no B2, B3 or B4), and the 1-spp
-    gradients against the plain path (kernels="off") and against
-    custom_vjp="on", within GRAD_RTOL."""
+    launches (B1, B5, B6 once a bounce, the row sums one a gathered table
+    a bounce; no B2, B3 or B4), whether every rep's gradients have the
+    same bits (`deterministic`), and the 1-spp gradients against the
+    plain path (kernels="off") and against custom_vjp="on", within
+    GRAD_RTOL."""
     scene = compile_scene(sb, device=DEV)
     cam = default_camera(W / H, device=DEV)
     cfg = RenderConfig(max_bounces=BOUNCES, custom_vjp="off")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (loss, grads), walls, launches = walls_of(
-        lambda: protocol_grads(scene, cam, cfg, spp, trainable), reps)
+    runs = []
+
+    def step():
+        out = protocol_grads(scene, cam, cfg, spp, trainable)
+        runs.append(out[1])
+        return out
+
+    (loss, grads), walls, launches = walls_of(step, reps)
     peak = torch.cuda.max_memory_allocated()
+    deterministic = all(grads_equal(runs[0], x) for x in runs[1:])
+    if not deterministic:
+        raise AssertionError(f"plain_ad {label}: two backward passes gave "
+                             f"different gradients")
     n = spp * BOUNCES
-    expect = dict(first_hits=n)
+    expect = dict(first_hits=n,
+                  row_sum=rowsum_launches(scene, trainable, spp))
     if scene.mesh_mat.shape[0] > 0:
         expect["traverse"] = n
     if scene.light_pos.shape[0] > 0:
@@ -2419,7 +2726,8 @@ def plain_ad_phase(label, sb, spp, trainable, reps=3):
                                  f"{v:.3g} > {GRAD_RTOL}")
     say("plain_ad", scene=label, size=f"{W}x{H}", spp=spp, bounces=BOUNCES,
         trainable="+".join(trainable), loss=f"{float(loss):.6g}",
-        step_s=spread(walls), reps=reps, peak_mem_gb=f"{peak / 1e9:.3f}",
+        step_s=spread(walls), reps=reps, deterministic=deterministic,
+        peak_mem_gb=f"{peak / 1e9:.3f}",
         launches=launches,
         grad_rel_err_1spp={k: f"{v:.3g}" for k, v in rel.items()})
 
@@ -2574,6 +2882,46 @@ def bench_phase(reps=3):
         plain=f"{want:.9g}", abs_err=f"{err:.3g}", tol=ATOL)
 
 
+# ---------------------------------------------------------------------------
+# The multi-host weak-scaling harness (tracer_torch/bench_multihost.py)
+# ---------------------------------------------------------------------------
+
+def key_tree(d):
+    """The keys of a JSON object and of the objects in it."""
+    return {k: key_tree(v) if isinstance(v, dict) else None
+            for k, v in d.items()}
+
+
+def multihost_phase():
+    """`tracer_torch.bench_multihost.driver()` as `python -m
+    tracer_torch.bench_multihost` runs it: the 1-host, 2-host and indep
+    groups (gloo ranks sharing the card, one rank a host, on one card;
+    NCCL at 2 ranks a host, one card a rank, on four). The driver prints
+    its JSON on a line of its own; its keys, and those of the objects in
+    it, must be MULTIHOST_SCALING.json's, and every rate positive."""
+    from tracer_torch import bench_multihost
+
+    t0 = time.perf_counter()
+    res = bench_multihost.driver()
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "MULTIHOST_SCALING.json")
+    with open(ref_path) as f:
+        ref = json.load(f)
+    if key_tree(res) != key_tree(ref):
+        raise AssertionError(f"multihost: keys {key_tree(res)}, expected "
+                             f"{key_tree(ref)}")
+    rates = [res[k]["rays_per_s"] for k in ("one_host", "two_host",
+                                            "indep_two_proc")]
+    if not (all(r > 0 for r in rates) and res["value"] > 0):
+        raise AssertionError(f"multihost: rates {rates}, value "
+                             f"{res['value']}")
+    say("multihost", efficiency=res["value"],
+        indep_efficiency=res["rig_gap_decomposition"][
+            "indep_2proc_efficiency"],
+        backend=f'"{res["backend"]}"',
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def ptxas_report(info):
     """{kernel: "N registers, S B stack, spills"} from nvcc's -Xptxas -v
     report: each 'Compiling entry function' line names the kernel that the
@@ -2585,7 +2933,7 @@ def ptxas_report(info):
             for key in ("first_hits_kernel", "shade_scatter_kernel",
                         "bounce_bwd_kernel", "bounce_bwd_reduce",
                         "traverse_roots", "traverse_walk", "shadow_setup",
-                        "shadow_walk", "fold_"):
+                        "shadow_walk", "fold_", "rs_"):
                 if key in name:
                     variant = ("<shared>" if "ILb1E" in name else "<L2>"
                                if "ILb0E" in name else "")
@@ -2619,6 +2967,7 @@ def main(dist_only=False, bench_only=False):
     if dist_only or bench_only:
         if dist_only:
             dist_phases(zoo.setup_cornell_box(W / H))
+            multihost_phase()
         else:
             bench_phase()
         say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
@@ -2710,12 +3059,26 @@ def main(dist_only=False, bench_only=False):
                  plain_frame=False)
     render_phase("cornell_textured_exact_atlas", pair_sb, PAIR_SPP,
                  packed_atlas="off")
-    general_protocol_phase("rt_weekend_standin", rtw_sb, SPP,
-                           ("mat_diffuse", "sph_center", "tex_data"))
-    profile_phase("rt_weekend_standin", rtw_sb,
-                  trainable=("mat_diffuse", "sph_center", "tex_data"))
-    general_protocol_phase("flamingo_standin", flam_sb, SPP,
-                           ("mesh_verts", "mat_diffuse", "sph_center"))
+    rtw_train = ("mat_diffuse", "sph_center", "tex_data")
+    flam_train = ("mesh_verts", "mat_diffuse", "sph_center")
+    launches["row_sum"] = general_protocol_phase(
+        "rt_weekend_standin", rtw_sb, SPP, rtw_train)["row_sum"]
+    profile_phase("rt_weekend_standin", rtw_sb, trainable=rtw_train)
+    general_protocol_phase("flamingo_standin", flam_sb, SPP, flam_train)
+    # the replay's row sums: every atomic or scattered sum left in the
+    # general and the plain autodiff steps, then the row-sum kernel on the
+    # row sums those steps make, at each table shape
+    atomics_phase("rt_weekend_standin", rtw_sb, 4, rtw_train)
+    atomics_phase("flamingo_standin", flam_sb, 4, flam_train,
+                  custom_vjp="off")
+    rowsum_phase([
+        ("rt_weekend_standin", rtw_sb, rtw_train, "on"),
+        ("flamingo_standin", flam_sb, flam_train, "on"),
+        ("tiled_wall_3000", tiled_wall(zoo.SceneBuilder(), 3000),
+         ("quad_v0", "mat_diffuse"), "on"),
+        ("cornell_textured_lit_plain_ad", lit_textured_cornell(),
+         ("tex_data", "nm_data", "quad_v0", "sph_center", "mat_mb"),
+         "off")], stats)
 
     entry_point_phases(flat_sb, pair_sb, rtw_sb)
     dist_phases(flat_sb)
@@ -2723,6 +3086,7 @@ def main(dist_only=False, bench_only=False):
     plain_ad_phase("flamingo_standin", flam_sb, 4,
                    ("mesh_verts", "mat_diffuse", "sph_center"))
     bench_phase()
+    multihost_phase()
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
     # reference, B3 cornell reference bounce 0, B4 the textured stream,
@@ -2756,6 +3120,19 @@ def main(dist_only=False, bench_only=False):
                      "plain_ms": rec.plain_ms, "bound_ms": rec.bound_ms,
                      "bound_by": rec.bound_by,
                      "library_ms": rec.library_ms})
+    # the row sums: rt_weekend_standin's material rows (matf) in the
+    # 16-spp general step's backward, every table shape's error
+    named = stats["row_sum"]
+    rec = next(r for k, r in named
+               if k.startswith("rt_weekend_standin") and k.endswith("x18"))
+    rows.append({"name": "row_sum", "route": "cuda",
+                 "source": "tracer_torch/kernels/csrc/row_sum.cu",
+                 "replaces": "tracer/render/integrator.py:154 (_rows, a "
+                             "one-hot product outside Pallas)",
+                 "launches": launches["row_sum"],
+                 "max_abs_err": max(r.err for _, r in named), "ms": rec.ms,
+                 "plain_ms": rec.plain_ms, "bound_ms": rec.bound_ms,
+                 "bound_by": rec.bound_by, "library_ms": rec.library_ms})
     say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": rows}))

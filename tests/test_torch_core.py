@@ -133,15 +133,19 @@ def test_port_never_imports_jax():
         "'tracer_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'tracer_torch.bench' in sys.modules\n"
-        # the benchmark run end to end: nothing it imports late is JAX's
-        "from tracer_torch import bench\n"
+        "assert 'tracer_torch.bench_multihost' in sys.modules\n"
+        # the benchmarks run end to end: nothing they import late is JAX's
+        "from tracer_torch import bench, bench_multihost\n"
+        "from tracer_torch.dist.sharding import make_ray_mesh\n"
         "bench.main(device='cpu')\n"
+        "bench_multihost.measure(make_ray_mesh(1, 1), 'x', device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tracer' or m.startswith('tracer.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, BENCH_WIDTH="8", BENCH_HEIGHT="6", BENCH_SPP="1",
-               BENCH_REPS="1")
+               BENCH_REPS="1", BENCH_MH_WIDTH="8", BENCH_MH_HEIGHT="6",
+               BENCH_MH_PIX_PER_DP="8")
     env.pop("BENCH_SCENES", None)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)

@@ -78,10 +78,26 @@ def mesh_builder():
     return sb
 
 
+def above_builder():
+    """A light straight above the edge of an opaque stand-in mesh (its
+    largest vertex x and mean z, rounded to 1/64) and the floor: the
+    central ray from a floor point under the light's centre is parallel
+    to y, and the mesh hides part of the light from it."""
+    sb = JSceneBuilder()
+    s = sb.add_square((-1., -1., 0.), (1., 0., 0.), (0., 1., 0.), 8., 8.,
+                      JMaterial(diffuse=(0.3, 0.6, 0.9)))
+    s.rotate_x(-90).translate((0., -1.5, 0.))
+    m = add_standin(sb, 300, 1, "pond_flamingo").translate((-1.0, 2.2, 0.5))
+    v = np.asarray(m.verts)
+    cx, cz = np.round([v[:, 0].max() * 64, v[:, 2].mean() * 64]) / 64
+    sb.add_light((cx, 5., cz), radius=0.5)
+    return sb
+
+
 @functools.lru_cache(maxsize=None)
 def scenes(name):
     sb = dict(lit=lit_builder, random_spheres=jzoo.setup_random_spheres,
-              mesh=mesh_builder)[name]()
+              mesh=mesh_builder, above=above_builder)[name]()
     # the numpy BVH builder: test_torch_accel.py holds the native ones
     js = jcompile(sb, use_native=False)
     return js, port_scene(js)
@@ -156,6 +172,37 @@ def test_pallas_kernel_table_only(compat):
     _, got = run_both("lit", compat, p, tm, keys)
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
     assert want.std() > 0
+
+
+@pytest.mark.parametrize("compat", ["reference", "physical"])
+def test_light_straight_above_the_point(compat):
+    """ROADMAP Queue C, the reference's union shadow walk: hit points
+    straight under the light's centre make the central ray's x and z
+    components 0, so `icx` and `icz` are inf in
+    tracer/kernels/shadow.py:291-294. The port walks each sample's own ray
+    and equals the JAX package's jnp path there (finite, within 2e-5).
+    What the JAX package's Pallas kernel gives (interpret mode, as
+    `test_pallas_kernel_table_only`) is recorded: finite and equal to the
+    jnp path. Its slab test takes (bound -+ rho - px) * inf, which is
+    +-inf and sound wherever the bound is not exactly px +- rho; only a
+    node box at exactly that distance gives 0 * inf = NaN and is pruned,
+    and such a box lies rho from the central segment, beyond every
+    sample's reach, so the fault does not show in the factors here."""
+    js, ts = scenes("above")
+    p, tm, keys = floor_points(8)
+    lp = np.asarray(js.light_pos)[0]
+    p[0], p[2] = lp[0], lp[2]       # every lane under the light's centre
+    assert (lp[0] - p[0] == 0).all() and (lp[2] - p[2] == 0).all()
+    want, got = run_both("above", compat, p, tm, keys)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    assert 0.0 < want.mean() < 1.0 and want.std() > 0   # a penumbra
+    jc = JConfig(compat=compat, shadow_rays=K, kernels="on")
+    pallas = np.stack([np.asarray(f) for f in jshadow.shadow_factors(
+        js, jc, tuple(jnp.asarray(c) for c in p), jnp.asarray(tm),
+        jnp.asarray(keys), jc.epsilon)])
+    assert np.isfinite(pallas).all()
+    np.testing.assert_allclose(pallas, want, atol=1e-6, rtol=0)
 
 
 def test_shadow_tables_match_jax():

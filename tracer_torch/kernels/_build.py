@@ -97,5 +97,7 @@ def library() -> ctypes.CDLL:
     lib.tt_traverse.restype = ctypes.c_int
     lib.tt_shadow.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.tt_shadow.restype = ctypes.c_int
+    lib.tt_row_sum.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.tt_row_sum.restype = ctypes.c_int
     _LIB = lib
     return _LIB

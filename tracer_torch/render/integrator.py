@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +79,7 @@ from tracer_torch.core.mathutils import schlick_reflectance
 from tracer_torch.geometry import primitives as prim
 from tracer_torch.kernels import fold as kfold
 from tracer_torch.kernels import intersect as kintersect
+from tracer_torch.kernels import rowsum as krowsum
 from tracer_torch.kernels import shade as kshade
 from tracer_torch.kernels import shadow as kshadow
 from tracer_torch.kernels import traverse as ktraverse
@@ -247,26 +249,54 @@ def _shadow_rec(shadows, j):
 # The general bounce (the exact atlas forward and the differentiable replay)
 # ---------------------------------------------------------------------------
 
-def _take(table, idx):
-    """Rows `idx` of `table` by `index_select`, whose gradient adds onto
-    the table with `index_add_`. (Indexing `table[idx]` has the gradient
+class _GatherRows(torch.autograd.Function):
+    """`index_select` of a table's rows, whose backward sums each row's
+    lane cotangents in one fixed order (`kernels/rowsum.py`, a CUDA kernel
+    on the card): two backward passes give the same bits, which
+    `index_select`'s own gradient, `index_add_` with float atomics on the
+    card, does not. (Indexing `table[idx]` has the gradient
     `index_put_(accumulate=True)`, which on the card sorts the indices and
     sums each run of one row in one warp: with ~400,000 lanes on a dozen
-    rows that is the slowest op of the replay by far.)"""
-    return torch.index_select(table, 0, idx.reshape(-1).long()).reshape(
-        tuple(idx.shape) + tuple(table.shape[1:]))
+    rows that was the slowest op of the replay by far.)"""
+
+    @staticmethod
+    def forward(ctx, table, idx, kernels):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.kernels = table.shape, kernels
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        rows, cols = ctx.shape[0], math.prod(ctx.shape[1:])
+        gt = krowsum.row_sum(idx, g.reshape(g.shape[0], cols), rows,
+                             kernels=ctx.kernels)
+        return gt.reshape(ctx.shape), None, None
 
 
-def _rows(table, idx):
+def _take(table, idx, kernels="auto"):
+    """Rows `idx` (int32 or int64) of `table`, an exact gather; where the
+    table requires grad, its gradient sums onto the table in a fixed
+    order (`_GatherRows`, on the row sums `kernels` picks)."""
+    flat = idx.reshape(-1)
+    if torch.is_grad_enabled() and table.requires_grad:
+        out = _GatherRows.apply(table, flat, kernels)
+    else:
+        out = torch.index_select(table, 0, flat)
+    return out.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+def _rows(table, idx, kernels="auto"):
     """Row `idx` (clipped) of a small table: the JAX package's one-hot
     `_rows`, an exact gather here, whose gradient adds onto the table. A
     table with no rows gives zero rows, as the one-hot product does."""
     if table.shape[0] == 0:
         return table.new_zeros((idx.shape[0], table.shape[1]))
-    return _take(table, torch.clamp(idx, 0, table.shape[0] - 1))
+    return _take(table, torch.clamp(idx, 0, table.shape[0] - 1), kernels)
 
 
-def _geo_packs(scene):
+def _geo_packs(scene, kernels="auto"):
     """The scene-constant packed row tables of `_gather_hit_p`, built from
     the scene's (possibly trainable) tensors inside the autograd graph:
     sph [S, 8] (c, r, mb, mid), quad [Q, 19] (v0, er, eu, mb, tan, bitan,
@@ -276,11 +306,12 @@ def _geo_packs(scene):
         return a.to(torch.float32)[:, None]
 
     sph = torch.cat([scene.sph_center, scene.sph_radius[:, None],
-                     _take(scene.mat_mb, scene.sph_mat), f(scene.sph_mat)],
-                    dim=1)
+                     _take(scene.mat_mb, scene.sph_mat, kernels),
+                     f(scene.sph_mat)], dim=1)
     quad = torch.cat([scene.quad_v0, scene.quad_er, scene.quad_eu,
-                      _take(scene.mat_mb, scene.quad_mat), scene.quad_tan,
-                      scene.quad_bitan, f(scene.quad_mat)], dim=1)
+                      _take(scene.mat_mb, scene.quad_mat, kernels),
+                      scene.quad_tan, scene.quad_bitan, f(scene.quad_mat)],
+                     dim=1)
     matf = torch.cat([
         scene.mat_texscale, scene.mat_check1, scene.mat_check2,
         scene.mat_diffuse, scene.mat_light_color,
@@ -294,7 +325,7 @@ def _geo_packs(scene):
     return sph, quad, matf, mati
 
 
-def _mesh_detail_p(scene, o, d, tid):
+def _mesh_detail_p(scene, o, d, tid, kernels="auto"):
     """Differentiable mesh-hit detail on triangle `tid` (clipped): the
     barycentric position and normal from the SHARED vertex table, so that
     vertex cotangents add onto `mesh_verts`, and the corner colors
@@ -304,7 +335,7 @@ def _mesh_detail_p(scene, o, d, tid):
     [T, 24] pack built from `mesh_verts`; this gathers the same vertices
     and colors by the triangle's indices (the same values)."""
     t = torch.clamp(tid, 0, scene.tri_va.shape[0] - 1).long()
-    a, b, c = (vp.splat(_take(scene.mesh_verts, v[t]))
+    a, b, c = (vp.splat(_take(scene.mesh_verts, v[t], kernels))
                for v in (scene.tri_va, scene.tri_vb, scene.tri_vc))
     p_m, n_m, w0, w1, w2 = prim.triangle_hit_detail(o, d, a, b, c)
     ca, cb, cc = (scene.tri_col_a[t], scene.tri_col_b[t],
@@ -315,7 +346,7 @@ def _mesh_detail_p(scene, o, d, tid):
 
 
 def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
-                  fetch_tex=True, tex_saved=None):
+                  fetch_tex=True, tex_saved=None, kernels="auto"):
     """The selected hit's shading inputs, differentiably (the JAX
     package's `_gather_hit_p` without its pair-atlas branch, which the
     general route never takes).
@@ -328,16 +359,17 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
     idx_n, ptex, pnm), which the replay takes instead of fetching; else
     the texels come from the exact atlases (or, with `packed_on`, their
     packed twins: the same bits). `fetch_tex=False` skips the fetch where
-    no texel can reach an output. Returns a dict of planar fields, with
-    `tex_rec` (img, rnm, idx_t, idx_n, present, npresent) for the
-    record."""
+    no texel can reach an output. `kernels` (`RenderConfig.kernels`)
+    picks how the row gathers' gradients sum (`_take`). Returns a dict of
+    planar fields, with `tex_rec` (img, rnm, idx_t, idx_n, present,
+    npresent) for the record."""
     N = j.shape[0]
     S = scene.sph_center.shape[0]
     Q = scene.quad_v0.shape[0]
     is_sph = j < S
     is_quad = (j >= S) & (j < S + Q)
     is_mesh = j >= S + Q
-    sph_pack, quad_pack, matf, mati = _geo_packs(scene)
+    sph_pack, quad_pack, matf, mati = _geo_packs(scene, kernels)
 
     if k1 is not None:
         p_sq, n_sq = k1["p"], k1["n"]
@@ -346,13 +378,13 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
         mid_sq = k1["mid"]
         theta, phi = prim.sphere_angles(n_sq)
     else:
-        srow = _rows(sph_pack, j)
+        srow = _rows(sph_pack, j, kernels)
         mid_s = srow[:, 7].to(torch.int32)
         p_s, n_s = prim.sphere_hit_detail(
             o, d, a2, time, (srow[:, 0], srow[:, 1], srow[:, 2]),
             srow[:, 3], (srow[:, 4], srow[:, 5], srow[:, 6]))
         theta, phi = prim.sphere_angles(n_s)
-        qrow = _rows(quad_pack, j - S)
+        qrow = _rows(quad_pack, j - S, kernels)
         mid_q = qrow[:, 18].to(torch.int32)
         p_q, n_q, u_q, v_q = prim.quad_hit_detail(
             o, d, time, (qrow[:, 0], qrow[:, 1], qrow[:, 2]),
@@ -368,7 +400,8 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
     # mesh branch: shared-vertex gathers (Mesh.h:111-124)
     Nm = scene.mesh_mat.shape[0]
     if Nm > 0:
-        p_m, n_m, col_m, has_col = _mesh_detail_p(scene, o, d, tid)
+        p_m, n_m, col_m, has_col = _mesh_detail_p(scene, o, d, tid,
+                                                  kernels)
         mid_m = scene.mesh_mat[torch.clamp(j - S - Q, 0, Nm - 1).long()]
     else:
         p_m = n_m = col_m = vp.full_like(o, 0.0)
@@ -383,7 +416,7 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
     u_tex = torch.where(is_sph, phi * shading.INV_2PI, u_q)
     v_tex = torch.where(is_sph, theta * shading.INV_PI, v_q)
 
-    mrf = _rows(matf, mid)
+    mrf = _rows(matf, mid, kernels)
     mri = _rows(mati, mid)
     sx, sy = mrf[:, 0], mrf[:, 1]
     textype = mri[:, 0]
@@ -423,7 +456,7 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
             elif packed_on and scene.tex_pack.shape[0] > 1:
                 img = shading.packed_fetch(scene.tex_pack, tex_idx)
             else:
-                img = vp.splat(_take(scene.tex_data, tex_idx))
+                img = vp.splat(_take(scene.tex_data, tex_idx, kernels))
         else:
             img, present = vp.full_like(o, 0.0), zb
     same = (shading.cpp_trunc_mod2(u_tex * sx)
@@ -448,7 +481,7 @@ def _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=None,
         elif packed_on and scene.nm_pack.shape[0] > 1:
             raw = shading.packed_fetch(scene.nm_pack, nm_idx)
         else:
-            raw = vp.splat(_take(scene.nm_data, nm_idx))
+            raw = vp.splat(_take(scene.nm_data, nm_idx, kernels))
         raw_for_rec = raw
         nm = tuple(2.0 * c - 1.0 for c in raw)
         n2 = vp.normalize(tuple(
@@ -609,7 +642,8 @@ def _bounce_general(scene, cfg: RenderConfig, keys, state, b: int,
 
     fetch_tex = not (last and L == 0 and not scene.emissive_tex_image)
     hit = _gather_hit_p(scene, o, d, a2, time, j, tid, packed_on, k1=k1,
-                        fetch_tex=fetch_tex, tex_saved=tex_saved)
+                        fetch_tex=fetch_tex, tex_saved=tex_saved,
+                        kernels=cfg.kernels)
     live = active & ~miss
     if picks is not None and picks.done:
         shadows = picks.shadows

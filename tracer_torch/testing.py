@@ -405,3 +405,17 @@ def dist_rank(shapes, nsamples: int, extra: bool = False, ckpt_dir=None):
                               img - render(scene, cam, cfg)).max()))
         out["fit"] = dist_fit(*scenes["unlit"], 2, ckpt_dir, mesh)
     return out
+
+
+def multihost_rank():
+    """One rank of tests/test_torch_bench_multihost.py's group: its
+    coordinate on `multihost.make_pod_mesh()`, the sum of its block of the
+    harness's frame (`bench_multihost.frame`) and `measure`'s result."""
+    from tracer_torch import bench_multihost
+    from tracer_torch.dist import multihost
+
+    mesh = multihost.make_pod_mesh()
+    run, n = bench_multihost.frame(mesh, device="cpu")
+    return dict(coord=(mesh.dp_rank, mesh.sp_rank),
+                shape=(mesh.shape["dp"], mesh.shape["sp"]), n=n, sum=run(),
+                measured=bench_multihost.measure(mesh, "test", device="cpu"))

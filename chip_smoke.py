@@ -4,6 +4,8 @@
     python3 chip_smoke.py --dist    # the build, distribution and the
                                     # multi-host harness alone
     python3 chip_smoke.py --bench   # the build and the rays/s benchmark
+    python3 chip_smoke.py --graph   # the build and the compiled entry
+                                    # points against their eager bodies
 
 Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
 each kernel's registers and spills), holds each against its plain PyTorch
@@ -84,7 +86,19 @@ direct render, half the tiles deleted and resumed, a pure skip, host 1 of
 2); and the CLI in-process (`[cli]`: render, render --ckpt-dir, probe,
 benchmark --occupancy / --compile / --profile, the bare benchmark,
 grad-check, train, scenes, then `python -m tracer_torch.cli scenes` in a
-subprocess). Then
+subprocess). Then the compiled entry points (`graph_phase`,
+`tracer_torch/render/graphs.py`: CUDA graphs captured at a first call and
+replayed from the second), each against its eager body in the same call
+(`[graph]` lines): the Cornell 16-spp frame and the bench's frame scalar,
+the Cornell and textured Cornell 16-spp protocol steps, the frames of
+flamingo_standin, rt_weekend_standin (fused and general) and
+random_spheres at 4 spp, 4 `fit` steps on Cornell and their resume, the
+28-tile render against the direct frame: every output bit-equal, the
+launches of a replay, the host syncs of a compiled and an eager call,
+walls in turns, the device's idle share under the profiler, each graph's
+capture seconds and pool; and a body that reads the card, whose capture
+must raise. The renders and protocol steps above go through the same
+graphs (their timed call is a replay). Then
 distribution (`dist_phases`): (a) a process group of one rank over NCCL,
 whose (1, 1) mesh renders the 16-spp Cornell frame bit-equal to
 `render_pixels / 16` and whose `fit(mesh=)` equals `fit()` bit for bit
@@ -174,7 +188,7 @@ from tracer_torch.kernels import shade as kshade  # noqa: E402
 from tracer_torch.kernels import shade_bwd as kbwd  # noqa: E402
 from tracer_torch.kernels import shadow as kshadow  # noqa: E402
 from tracer_torch.kernels import traverse as ktraverse  # noqa: E402
-from tracer_torch.render import integrator, renderer  # noqa: E402
+from tracer_torch.render import graphs, integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
 from tracer_torch.render.camera import default_camera  # noqa: E402
 from tracer_torch.render.film import TileManifest  # noqa: E402
@@ -813,7 +827,8 @@ def fold_phase(scene, stats):
     g = torch.full((N, 3), 1.0 / (3 * N * SPP), device=DEV)
     with torch.no_grad():
         _, _, _, _, gtex = replay_bwd.replay_backward(
-            scene, cfg, tm, keys, rec, states, g)
+            scene, cfg, tm, keys, rec, states, g,
+            integrator.host_constants(scene).dark_sky)
     idxs = [r[0][2] for r in rec[:-1]]
     gs = [tuple(t[0:3]) for t in gtex]
     data = torch.zeros_like(scene.tex_data)
@@ -897,15 +912,15 @@ def fold_phase(scene, stats):
 
 
 def protocol_grads(scene, cam, cfg, spp, trainable):
-    """The bench.py protocol loss and its gradients: (loss, {name: grad})."""
-    params = {k: getattr(scene, k).clone().requires_grad_(True)
-              for k in trainable}
-    s2 = dataclasses.replace(scene, **params)
+    """The bench.py protocol loss and its gradients: (loss, {name: grad}),
+    by `bench.protocol_step` (seed 0): a graph on the card for the
+    hand-written backward's scenes with the kernels on, replayed from the
+    second call with the same inputs; the eager body elsewhere."""
+    from tracer_torch import bench
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
-    loss = renderer.render_pixels(s2, cam, cfg, W, H, pid, spp,
-                                  cfg.seed).div(spp).mean()
-    loss.backward()
-    return loss.detach(), {k: p.grad for k, p in params.items()}
+    _, loss, grads = bench.protocol_step(
+        bench.Inputs(scene, cam, cfg, W, H, pid, spp), tuple(trainable))
+    return loss, grads
 
 
 KERNEL_MODULES = dict(first_hits=kintersect, shade_scatter=kshade,
@@ -1010,12 +1025,14 @@ def profile_phase(label, sb, trainable=TRAINABLE):
     pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
 
     def step():
-        if trainable:
-            protocol_grads(scene, cam, cfg, SPP, trainable)
-        else:
-            with torch.no_grad():
-                renderer.render_pixels(scene, cam, cfg, W, H, pid, SPP,
-                                       cfg.seed)
+        # the eager step: the graphed one is profiled in the [graph] phase
+        with graphs.CACHE.disabled():
+            if trainable:
+                protocol_grads(scene, cam, cfg, SPP, trainable)
+            else:
+                with torch.no_grad():
+                    renderer.render_pixels(scene, cam, cfg, W, H, pid, SPP,
+                                           cfg.seed)
 
     step()                                              # warm-up
     torch.cuda.synchronize()
@@ -1068,7 +1085,7 @@ def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
     cam = default_camera(W / H, device=DEV)
     cfg = RenderConfig(nsamples=spp, width=W, height=H, max_bounces=BOUNCES,
                        **cfg_kw)
-    renderer.render(scene, cam, cfg, nsamples=1)  # warm-up
+    renderer.render(scene, cam, cfg)  # warm-up: the frame's graph captured
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1933,6 +1950,12 @@ def cli_phase():
             if n != dict(first_hits=calls, shade_scatter=calls):
                 raise AssertionError(f"cli {name}: launches {n}")
             kv["launches"] = n
+        if name == "compile":
+            res = json.loads(text.splitlines()[-1])
+            split = ("nvcc_s", "warmup_s", "capture_s", "instantiate_s",
+                     "first_replay_s")
+            if any(res[k] is None for k in split[1:]):
+                raise AssertionError(f"cli benchmark --compile: {res}")
         if name == "grad_check":
             res = json.loads(text)
             if not all(r["ok"] for r in res.values()):
@@ -2331,6 +2354,336 @@ def entry_point_phases(flat_sb, pair_sb, rtw_sb):
                 resume_exact=True, must_fall=False)
     tiled_phase("cornell", flat_sb, SPP)
     cli_phase()
+
+
+# ---------------------------------------------------------------------------
+# The compiled entry points (tracer_torch/render/graphs.py): CUDA graphs
+# ---------------------------------------------------------------------------
+
+def in_turns(fns, reps):
+    """{name: sorted walls}: one warm-up call of each of `fns` ({name: fn},
+    each call ending in a synchronise), then `reps` rounds that call each
+    once, the order reversed every other round (a, b, b, a, ...)."""
+    names = list(fns)
+    for n in names:
+        fns[n]()
+        torch.cuda.synchronize()
+    walls = {n: [] for n in names}
+    for r in range(reps):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            fns[n]()
+            torch.cuda.synchronize()
+            walls[n].append(time.perf_counter() - t0)
+    return {n: sorted(w) for n, w in walls.items()}
+
+
+def profiled(fn):
+    """(wall ms, device busy ms, idle share, kernels) of one call of `fn`
+    under torch.profiler, after a warm-up call and a first profiled call
+    (the first traced replay of a graph can cost the tracer seconds); a
+    replayed graph's kernels are counted as the eager ones are."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    return wall, busy, 1.0 - busy / wall, sum(e.count for e in evs), {
+        k: sum(e.count for e in evs if k in e.key)
+        for k in ("first_hits_kernel", "shade_scatter_kernel",
+                  "bounce_bwd_kernel")}
+
+
+def all_bit_equal(a, b):
+    """Two pytrees of tensors with the same bits."""
+    if isinstance(a, torch.Tensor):
+        return bit_equal(a.contiguous(), b.contiguous())
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(all_bit_equal(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(all_bit_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def graph_check(label, compiled, eager, want_launches, reps=0,
+                profile=False):
+    """One compiled entry point against its eager body in the same call:
+    the first call (the warm-up's result, then the capture), a replay and
+    the eager body, all bit-equal; the launches of one replay (the counts
+    reset just before it and read just after; the kernels of the path
+    must have run); the host synchronisations of one replay and of one
+    eager call; with `reps`, the walls of both in turns; with `profile`,
+    the device busy time and idle share of both."""
+    cache = graphs.CACHE
+    n0 = cache.captures
+    first = compiled()
+    g = cache.last
+    if cache.captures != n0 + 1:
+        raise AssertionError(f"graph {label}: {cache.captures - n0} "
+                             f"captures at the first call")
+    torch.cuda.synchronize()
+    reset_launches()
+    rep = compiled()
+    torch.cuda.synchronize()
+    launches = launched(*KERNEL_MODULES)
+    if launches != want_launches:
+        raise AssertionError(f"graph {label}: a replay's launches "
+                             f"{launches}, expected {want_launches}")
+    if g.replays != 1 or cache.captures != n0 + 1:
+        raise AssertionError(f"graph {label}: the second call did not "
+                             f"replay the graph")
+    with cache.disabled():
+        ref = eager()
+    if not (all_bit_equal(first, ref) and all_bit_equal(rep, ref)):
+        raise AssertionError(f"graph {label}: compiled differs from eager")
+    syncs, where = host_syncs(compiled)
+    with cache.disabled():
+        syncs_eager, where_eager = host_syncs(eager)
+    kv = dict(vs_eager="bit-equal", launches_a_replay=launches,
+              host_syncs=syncs, host_syncs_eager=syncs_eager,
+              sync_at_eager=where_eager,
+              warmup_s=f"{g.times['warmup_s']:.3f}",
+              capture_s=f"{g.times['capture_s']:.3f}",
+              instantiate_s=f"{g.times['instantiate_s']:.3f}",
+              pool_gb=f"{g.pool_bytes / 1e9:.3f}")
+    if syncs:
+        kv["sync_at"] = where
+    walls = {}
+    if reps:
+        def off():
+            with cache.disabled():
+                return eager()
+        walls = in_turns(dict(eager=off, compiled=compiled), reps)
+        kv.update(wall_s_eager=spread(walls["eager"]),
+                  wall_s_compiled=spread(walls["compiled"]))
+    if profile:
+        # the idle share under the profiler, and against the median wall
+        # of the calls above, which ran without it
+        for name, fn in (("compiled", compiled), ("eager", eager)):
+            with contextlib.ExitStack() as st:
+                if name == "eager":
+                    st.enter_context(cache.disabled())
+                wall, busy, idle, n, per = profiled(fn)
+            med = walls[name][len(walls[name]) // 2] * 1e3
+            kv[f"profile_{name}"] = dict(
+                wall_ms=f"{wall:.1f}", device_busy_ms=f"{busy:.1f}",
+                idle_share=f"{idle:.3f}",
+                idle_share_vs_median_wall=f"{1.0 - busy / med:.3f}",
+                device_launches=n, **per)
+    say("graph", case=label, **kv)
+    return syncs, syncs_eager
+
+
+def graph_phase(flat_sb, pair_sb, reps=3):
+    """The compiled entry points against their eager bodies, in the same
+    call, at 850x480, 6 bounces (`[graph]` lines): each replays a cached
+    graph from its second call on, bit-equal to the eager body
+    (`graph_check`): the Cornell 16-spp frame (`renderer.render_frame`) and
+    `bench.frame_scalar`; the Cornell and textured Cornell 16-spp protocol
+    steps (`bench.protocol_step`: the summed gradient, the loss and the
+    gradients of mat_diffuse, sph_center and tex_data); the frames of
+    flamingo_standin (B5, B6), rt_weekend_standin (fused, and the general
+    forward under packed_atlas="off") and random_spheres at 4 spp. The
+    host syncs of a compiled frame and step (0) and of the eager ones (at
+    most 1 a step); walls (median and spread of `reps` after a warm-up,
+    eager beside compiled, in turns) and the device's idle share under the
+    profiler for the frame and the step. Then `fit` on Cornell: 4 steps
+    compiled against 4 eager (losses, grad norms, params and the Adam
+    state bit-equal; the walls of steps 2-4; launches a step), and a
+    compiled run of 2 steps resumed to 4, bit-equal to the uninterrupted
+    one. Then the 28-tile render (compiled, one graph a tile shape)
+    bit-equal to the direct frame, its walls beside the eager tiled
+    render's. Last, a body that reads the card must fail at its capture:
+    it raises, nothing is cached, no eager result stands in, and the
+    card works on. Each graph's capture seconds and pool bytes are
+    printed."""
+    from tracer_torch import bench
+    cache = graphs.CACHE
+    cache.clear()
+    cam = default_camera(W / H, device=DEV)
+    flat = compile_scene(flat_sb, device=DEV)
+    pair = compile_scene(pair_sb, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    cfg = RenderConfig(nsamples=SPP, width=W, height=H, max_bounces=BOUNCES)
+    total = {}
+
+    def add(counts, times=1):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v * times
+
+    def frame(scene, spp, c=cfg):
+        return lambda: renderer.render_frame(scene, cam, c, W, H, pid, spp,
+                                             c.seed)
+
+    want = call_launches(flat, cfg, SPP)
+    sync_frame, _ = graph_check("cornell_frame", frame(flat, SPP),
+                                frame(flat, SPP), want, reps, profile=True)
+    add(want)
+    bf = bench.Inputs(flat, cam, cfg, W, H, pid, SPP)
+    graph_check("bench_frame_scalar", lambda: bench.frame_scalar(bf),
+                lambda: bench.frame_scalar(bf), want)
+    add(want)
+    for label, scene in (("cornell", flat), ("cornell_textured", pair)):
+        b = bench.Inputs(scene, cam, cfg, W, H, pid, SPP)
+        want = call_launches(scene, cfg, SPP, TRAINABLE)
+        sync_step, sync_eager = graph_check(
+            f"{label}_protocol_step",
+            lambda b=b: bench.protocol_step(b, TRAINABLE),
+            lambda b=b: bench.protocol_step(b, TRAINABLE), want, reps,
+            profile=label == "cornell")
+        add(want)
+        if sync_frame or sync_step or sync_eager > 1:
+            raise AssertionError(
+                f"graph: host syncs: a compiled frame {sync_frame}, a "
+                f"compiled step {sync_step}, an eager step {sync_eager}")
+    cache.clear()
+    rtw = compile_scene(rt_weekend_standin(zoo), device=DEV)
+    for label, scene, spp, kw in (
+            ("flamingo_standin", compile_scene(flamingo_standin(zoo),
+                                               device=DEV), 4, {}),
+            ("rt_weekend_standin", rtw, 4, {}),
+            ("rt_weekend_standin_general", rtw, 4,
+             dict(packed_atlas="off")),
+            ("random_spheres", compile_scene(zoo.setup_random_spheres(),
+                                             device=DEV), 4, {})):
+        c = dataclasses.replace(cfg, nsamples=spp, **kw)
+        want = call_launches(scene, c, spp)
+        graph_check(f"{label}_frame", frame(scene, spp, c),
+                    frame(scene, spp, c), want)
+        add(want)
+        cache.clear()
+    if sorted(total) != sorted(("first_hits", "shade_scatter", "bounce_bwd",
+                                "sorted_fold", "traverse", "shadow")):
+        raise AssertionError(f"graph: replays launched {total}")
+
+    # fit on Cornell: compiled against eager, and the compiled resume
+    trainable = ("mat_diffuse", "sph_center", "cam_quaternion")
+    target = train_target(flat, cam, cfg, trainable, SPP)
+    s0, c0 = train_start(flat, cam, trainable,
+                         dict(mat_diffuse=0.05, sph_center=0.02,
+                              cam_quaternion=0.002), seed=1)
+    kw = dict(trainable=trainable, lr=2e-3, width=W, height=H, nsamples=SPP,
+              ckpt_every=4)
+    tmp = tempfile.mkdtemp()
+    runs = {}
+    for name in ("compiled", "eager", "resumed"):
+        d = os.path.join(tmp, name)
+        with contextlib.ExitStack() as st:
+            if name == "eager":
+                st.enter_context(cache.disabled())
+            if name == "resumed":
+                T.fit(s0, c0, cfg, target, steps=2, ckpt_dir=d, **kw)
+            reset_launches()
+            n0 = cache.captures
+            s1, c1, hist = T.fit(s0, c0, cfg, target, steps=4, ckpt_dir=d,
+                                 **kw)
+            torch.cuda.synchronize()
+        runs[name] = (T.split_params(s1, c1, trainable), hist,
+                      ckpt_leaves(os.path.join(d, "train.npz")),
+                      launch_counts(*KERNEL_MODULES), cache.captures - n0)
+    pa, ha, la, na, capa = runs["compiled"]
+    want = {k: v * 4 for k, v in call_launches(flat, cfg, SPP,
+                                               trainable).items()}
+    if {k: v for k, v in na.items() if v} != want or capa != 1:
+        raise AssertionError(f"graph fit: launches {na}, expected {want}; "
+                             f"{capa} captures")
+    for name in ("eager", "resumed"):
+        pb, hb, lb, _, _ = runs[name]
+        steps = [(h["loss"], h["grad_norm"]) for h in hb]
+        if not (steps == [(h["loss"], h["grad_norm"])
+                          for h in ha][-len(hb):]
+                and all(bit_equal(pa[k].detach(), pb[k].detach())
+                        for k in trainable) and leaves_equal(la, lb)):
+            raise AssertionError(f"graph fit: {name} run differs from the "
+                                 f"compiled one")
+    walls = {name: sorted(h["step_s"] for h in runs[name][1][1:])
+             for name in ("compiled", "eager")}
+    say("graph", case="cornell_fit", steps=4, trainable="+".join(trainable),
+        vs_eager="bit-equal", resume="bit-equal",
+        launches_a_step={k: v // 4 for k, v in want.items()},
+        step_s_eager=spread(walls["eager"]),
+        step_s_compiled=spread(walls["compiled"]),
+        losses=[f"{h['loss']:.6g}" for h in ha])
+    cache.clear()
+
+    # the tiled render: compiled (a graph a tile shape) against the direct
+    # frame, and its walls beside the eager tiled render's
+    direct = renderer.render(flat, cam, cfg)
+    g = cache.last
+    if (g.key[0] != "frame" or g.replays != 0
+            or not np.array_equal(renderer.render(flat, cam, cfg), direct)
+            or g.replays != 1):
+        raise AssertionError("graph: the second render did not replay its "
+                             "frame's graph, or differs from the first")
+
+    def tiled():
+        return renderer.render(flat, cam, cfg, ckpt_dir=tempfile.mkdtemp())
+
+    def tiled_eager():
+        with cache.disabled():
+            return tiled()
+
+    n0 = cache.captures
+    walls = in_turns(dict(eager=tiled_eager, compiled=tiled), reps)
+    reset_launches()
+    img = tiled()
+    n_tiles = TileManifest(W, H, 128, tempfile.mkdtemp()).n_tiles
+    tiled_launches = launched(*KERNEL_MODULES)
+    if tiled_launches != {k: v * n_tiles for k, v in
+                          call_launches(flat, cfg, SPP).items()}:
+        raise AssertionError(f"graph tiled: launches {tiled_launches}")
+    if not np.array_equal(img, direct) or cache.captures - n0 != 4:
+        raise AssertionError(f"graph tiled: image differs from the direct "
+                             f"frame, or {cache.captures - n0} captures")
+    say("graph", case="cornell_tiled", tiles=n_tiles, image="bit-equal",
+        direct_render="replayed, bit-equal",
+        captures=cache.captures - n0, launches=tiled_launches,
+        wall_s_eager=spread(walls["eager"]),
+        wall_s_compiled=spread(walls["compiled"]))
+    for g in cache.graphs():
+        say("graph", pool=g.key[0], pixels=g.key[-1][1][0],
+            replays=g.replays, warmup_s=f"{g.times['warmup_s']:.3f}",
+            capture_s=f"{g.times['capture_s']:.3f}",
+            instantiate_s=f"{g.times['instantiate_s']:.3f}",
+            pool_gb=f"{g.pool_bytes / 1e9:.3f}")
+    cache.clear()
+
+    # a body that reads the card fails at its capture, with no fallback
+    def reads(p):
+        acc = renderer.render_pixels(flat, cam, cfg, W, H, p, 1, 0)
+        if float(acc.sum()) < 0.0:
+            acc = -acc
+        return acc
+
+    reset_launches()
+    err = None
+    try:
+        cache.call(("must_fail",), reads, (pid,), keep=(flat, cam))
+    except RuntimeError as e:
+        err = str(e).strip().splitlines()[0]
+    torch.cuda.synchronize()
+    one = call_launches(flat, cfg, 1)
+    if err is None or ("must_fail",) in cache or launched(
+            *KERNEL_MODULES) != one:
+        raise AssertionError(f"graph: the reading body was captured "
+                             f"({err!r}, launches "
+                             f"{launched(*KERNEL_MODULES)})")
+    again = renderer.render_frame(flat, cam, cfg, W, H, pid, 1, 0)
+    with cache.disabled():
+        ref = renderer.render_frame(flat, cam, cfg, W, H, pid, 1, 0)
+    if not bit_equal(again, ref):
+        raise AssertionError("graph: frames after the failed capture differ")
+    say("graph", case="capture_must_fail", raised=f'"{err}"', cached=False,
+        launches_warmup_only=one)
+    cache.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -2947,7 +3300,7 @@ def ptxas_report(info):
     return out
 
 
-def main(dist_only=False, bench_only=False):
+def main(dist_only=False, bench_only=False, graph_only=False):
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2964,12 +3317,15 @@ def main(dist_only=False, bench_only=False):
         nvcc_seconds=_build.BUILD_SECONDS)
     for k, v in ptxas_report(_build.PTXAS_INFO).items():
         say("ptxas", kernel=k, use=v)
-    if dist_only or bench_only:
+    if dist_only or bench_only or graph_only:
         if dist_only:
             dist_phases(zoo.setup_cornell_box(W / H))
             multihost_phase()
-        else:
+        elif bench_only:
             bench_phase()
+        else:
+            graph_phase(zoo.setup_cornell_box(W / H), fill_cornell_textures(
+                zoo.setup_cornell_box(W / H), FULL))
         say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3005,6 +3361,7 @@ def main(dist_only=False, bench_only=False):
     profile_phase("cornell", flat_sb)
     profile_phase("cornell_textured", pair_sb)
 
+    graphs.CACHE.clear()    # the graphs of the boxes' phases and their pools
     t0 = time.perf_counter()
     flam_sb = flamingo_standin(zoo)
     flam = compile_scene(flam_sb, device=DEV)
@@ -3080,12 +3437,16 @@ def main(dist_only=False, bench_only=False):
          ("tex_data", "nm_data", "quad_v0", "sph_center", "mat_mb"),
          "off")], stats)
 
+    graphs.CACHE.clear()
     entry_point_phases(flat_sb, pair_sb, rtw_sb)
+    graph_phase(flat_sb, pair_sb)
     dist_phases(flat_sb)
     plain_ad_phase("cornell", flat_sb, SPP, ("mat_diffuse", "sph_center"))
     plain_ad_phase("flamingo_standin", flam_sb, 4,
                    ("mesh_verts", "mat_diffuse", "sph_center"))
+    graphs.CACHE.clear()
     bench_phase()
+    graphs.CACHE.clear()
     multihost_phase()
 
     # representative calls: B1 cornell bounce 1, B2 cornell bounce 1
@@ -3143,5 +3504,6 @@ def main(dist_only=False, bench_only=False):
 
 if __name__ == "__main__":
     main(dist_only="--dist" in sys.argv[1:],
-         bench_only="--bench" in sys.argv[1:])
+         bench_only="--bench" in sys.argv[1:],
+         graph_only="--graph" in sys.argv[1:])
     sys.stdout.flush()

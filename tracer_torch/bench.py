@@ -24,29 +24,28 @@ The timed bodies are plain functions, so that tests and `chip_smoke.py`
 call them: `frame_scalar` (the frame's mean radiance, `render_pixels(...)
 / spp` then `.mean()`), `grad_sum` (every gradient entry of the protocol
 loss summed to one scalar, through `loss.backward()`: the hand-written
-sweep on B3, B4 where the atlas has texels), `per_primary`. Their inputs
-come from `inputs(...)`, which takes the device (default "cuda"). The
-random streams start from seed 0, the port's `jax.random.key(0)`.
+sweep on B3, B4 where the atlas has texels; `protocol_step` gives the
+gradients too), `per_primary`. Their inputs come from `inputs(...)`,
+which takes the device (default "cuda"). The random streams start from
+seed 0, the port's `jax.random.key(0)`. On the card `frame_scalar` and
+`protocol_step` are CUDA graphs (`render/graphs.py`), as `bench.py` times
+`jax.jit(frame)` and `jax.jit(gsum)`: the first call runs the body and
+captures it, every later call replays it.
 
 Timing discipline (`timeit`): one untimed call (on first use the nvcc
-build, then the first run), then `reps` calls queued without a
-synchronise, then one read of the last scalar to the host, which waits
-for every queued call (the card runs one stream in order). A frame and a
-step here are bound by the host's kernel launches (the card idles 0.91-0.95
-of a 16-spp Cornell frame, PERF.md section 5), so the queued wall measures
-how fast the host enqueues the launches: what a user calling the entry
-points gets. A host synchronisation inside the timed body bounds how far
-the host runs ahead of the card. `torch.cuda.set_sync_debug_mode("warn")`
-counts them on an H100 (`chip_smoke.py`'s `[bench]` lines print the counts
-and the lines that make them):
-- a 16-spp frame makes 1: `integrator.prepare` reads `dark_sky` to the
-  host (`kernels/shade.py::shade_tables`) at the frame's start, which
-  waits for the frame queued before it. So the queued frames are nearly
-  per rep: the host starts a frame's launches only once the card has
-  finished the frame before it;
-- a protocol step makes 97: that one, and one a bounce of each sample's
-  backward sweep (`render/replay_bwd.py` reads `dark_sky` again for each
-  B3 call). So the step's wall is a wall of synchronised bounces.
+build; then the first run and the graph's capture), then `reps` calls
+queued without a synchronise, then one read of the last scalar to the
+host, which waits for every queued call (the card runs one stream in
+order). A replay enqueues a frame's 5,481 launches as one graph launch, so
+the queued wall is the card's time, not the host's enqueue (eager, the
+card idled 0.91-0.95 of a 16-spp Cornell frame, PERF.md section 5). A
+host synchronisation inside the timed body would bound how far the host
+runs ahead of the card; `torch.cuda.set_sync_debug_mode("warn")` counts
+none in a frame or a protocol step, compiled or eager, after the first
+call on a scene (`chip_smoke.py`'s `[bench]` and `[graph]` lines): the
+frame's one read, `dark_sky` for the shade kernel, is memoised per scene
+(`integrator.host_constants`), and the backward sweep takes it from the
+forward.
 
 Pixel ids: `bench.py` pads the ray list to a whole number of its kernels'
 128-row tiles (`pad_rows(408,000)` = 409,600 ids, the last 1,600 repeating
@@ -67,8 +66,9 @@ from typing import NamedTuple
 import torch
 
 from tracer_torch.core.config import RenderConfig
+from tracer_torch.render import graphs
 from tracer_torch.render.camera import Camera, default_camera
-from tracer_torch.render.renderer import render_pixels
+from tracer_torch.render.renderer import frame_key, render_pixels
 from tracer_torch.scene.device import DeviceScene, compile_scene
 from tracer_torch.scenes import zoo
 
@@ -105,27 +105,64 @@ def inputs(sb, width, height, spp, device="cuda", camera=None) -> Inputs:
                                device=device), spp)
 
 
+def _key(name, b: Inputs, *static):
+    return (name,) + frame_key(b.scene, b.camera, b.cfg, b.width, b.height,
+                               b.pixel_ids, b.spp, SEED) + static
+
+
 def frame_scalar(b: Inputs):
     """The frame's mean radiance (`bench.py`'s `frame`): a 0-d tensor on
-    the frame's device, not yet read to the host."""
-    with torch.no_grad():
-        acc = render_pixels(b.scene, b.camera, b.cfg, b.width, b.height,
-                            b.pixel_ids, b.spp, SEED)
-        return (acc / b.spp).mean()
+    the frame's device, not yet read to the host. On the card one graph
+    (`render/graphs.py`, as `bench.py` times `jax.jit(frame)`): the frame
+    and its mean, replayed from the second call on."""
+    def body(pid):
+        with torch.no_grad():
+            acc = render_pixels(b.scene, b.camera, b.cfg, b.width, b.height,
+                                pid, b.spp, SEED)
+            return (acc / b.spp).mean()
+
+    if not graphs.CACHE.active(b.pixel_ids, b.cfg):
+        return body(b.pixel_ids)
+    return graphs.CACHE.call(_key("bench_frame", b), body, (b.pixel_ids,),
+                             keep=(b.scene, b.camera))
+
+
+def protocol_step(b: Inputs, trainable=TRAINABLE):
+    """The protocol step: (every gradient entry summed to a 0-d tensor,
+    the loss, {name: gradient}) for the protocol loss (the frame's mean
+    radiance) with respect to the `trainable` scene fields. Its leaves are
+    detached views of the scene's own tensors, made inside the body: they
+    share the scene's storage, so the graph's key stays the same from call
+    to call with no copy. On the card, for the scenes of the hand-written
+    backward (`train.graph_step_ok`), one graph (`bench.py`'s
+    `jax.jit(gsum)`): forward, `loss.backward()` and the sum; elsewhere
+    the eager body, whose autograd graph `backward()` frees before the
+    function returns."""
+    from tracer_torch.train import graph_step_ok
+
+    def body(pid):
+        params = {k: getattr(b.scene, k).detach().requires_grad_(True)
+                  for k in trainable}
+        scene = dataclasses.replace(b.scene, **params)
+        with torch.enable_grad():
+            acc = render_pixels(scene, b.camera, b.cfg, b.width, b.height,
+                                pid, b.spp, SEED)
+            loss = (acc / b.spp).mean()
+            loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        return sum(g.sum() for g in grads.values()), loss.detach(), grads
+
+    if not graph_step_ok(b.scene, b.cfg, b.pixel_ids):
+        return body(b.pixel_ids)
+    return graphs.CACHE.call(_key("bench_step", b, tuple(trainable)), body,
+                             (b.pixel_ids,), keep=(b.scene, b.camera))
 
 
 def grad_sum(b: Inputs, trainable=TRAINABLE):
-    """Every gradient entry of the protocol loss (the frame's mean
-    radiance) with respect to the `trainable` scene fields, summed to a 0-d
-    tensor (`bench.py`'s `gsum` / `gsum_nt`). The step's graph is freed by
-    `backward()` before the function returns."""
-    params = {k: getattr(b.scene, k).detach().requires_grad_(True)
-              for k in trainable}
-    scene = dataclasses.replace(b.scene, **params)
-    acc = render_pixels(scene, b.camera, b.cfg, b.width, b.height,
-                        b.pixel_ids, b.spp, SEED)
-    (acc / b.spp).mean().backward()
-    return sum(p.grad.sum() for p in params.values())
+    """Every gradient entry of the protocol loss with respect to the
+    `trainable` scene fields, summed to a 0-d tensor (`bench.py`'s `gsum`
+    / `gsum_nt`): `protocol_step`'s first result."""
+    return protocol_step(b, trainable)[0]
 
 
 def per_primary(scene, cfg: RenderConfig) -> int:

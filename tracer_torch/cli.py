@@ -150,12 +150,18 @@ def cmd_probe(args):
 
 def _compile_stats(args):
     """benchmark --compile: the port's counterpart of the JAX package's
-    trace / lower / compile seconds: the kernels' build
+    trace / lower / compile / first-run seconds for the frame (the mean of
+    `render_pixels` on the selected scene): the kernels' build
     (`kernels/_build.py`: one nvcc per source, then a link, or a cached
-    library of the same sources and flags), then the first run of the
-    flagship frame chunk (render_pixels on the selected scene)."""
+    library of the same sources and flags), then the first call of the
+    compiled frame (`renderer.render_frame`; `first_run_s`), split on the
+    card into the warm-up (the eager body on the capture stream: the
+    trace), the capture and the graph's instantiation, then the first
+    replay (a second call). The split is null where nothing was
+    captured: on the CPU, where both calls run the eager body."""
     from tracer_torch.kernels import _build as kbuild
-    from tracer_torch.render.renderer import render_pixels
+    from tracer_torch.render import graphs
+    from tracer_torch.render.renderer import render_frame
 
     cfg = _config(args)
     on_card = torch.device(args.device).type == "cuda"
@@ -168,11 +174,23 @@ def _compile_stats(args):
     cam = _camera(args)
     pid = torch.arange(args.width * args.height, dtype=torch.int32,
                        device=args.device)
+
+    def frame():
+        return float(render_frame(scene, cam, cfg, args.width, args.height,
+                                  pid, args.spp, cfg.seed).mean())
+
+    captures = graphs.CACHE.captures
     t0 = time.perf_counter()
-    with torch.no_grad():
-        v = float(render_pixels(scene, cam, cfg, args.width, args.height,
-                                pid, args.spp, cfg.seed).mean())
+    v = frame()
     t_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame()
+    t_replay = time.perf_counter() - t0
+    g = graphs.CACHE.last if graphs.CACHE.captures > captures else None
+
+    def split(name):
+        return round(g.times[name], 3) if g is not None else None
+
     print(json.dumps({
         "scene": args.scene,
         "config": f"{args.width}x{args.height}@{args.spp}spp "
@@ -182,6 +200,11 @@ def _compile_stats(args):
         "nvcc_s": (round(kbuild.BUILD_SECONDS, 3)
                    if kbuild.BUILD_SECONDS is not None else None),
         "first_run_s": round(t_run, 3),
+        "warmup_s": split("warmup_s"),
+        "capture_s": split("capture_s"),
+        "instantiate_s": split("instantiate_s"),
+        "first_replay_s": round(t_replay, 3) if g is not None else None,
+        "pool_gb": round(g.pool_bytes / 1e9, 3) if g is not None else None,
         "mean_radiance": v,
         "device": _device_name(args.device),
     }))

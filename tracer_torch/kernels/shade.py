@@ -112,11 +112,14 @@ def mat_pair_table(scene):
                        dim=1).to(torch.float32).contiguous()
 
 
-def shade_tables(scene):
+def shade_tables(scene, dark=None):
     """(material table, light table, dark_sky as a host float): what the
-    shade pass reads besides the rays. Build it once per frame."""
-    return shade_mat_table(scene), _light_table(scene), \
-        float(scene.dark_sky)
+    shade pass reads besides the rays. Build it once per frame. `dark`:
+    dark_sky already read to the host (`integrator.host_constants`), else
+    it is read here."""
+    if dark is None:
+        dark = float(scene.dark_sky)
+    return shade_mat_table(scene), _light_table(scene), dark
 
 
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,

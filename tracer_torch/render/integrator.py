@@ -66,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -108,6 +109,39 @@ def _fused(scene, cfg: RenderConfig) -> bool:
     return (pair_ok and packed_on) or _no_atlas(scene)
 
 
+class HostConstants(NamedTuple):
+    """What a frame reads from the card to the host: `dark_sky` (the shade
+    kernel's and the sweep's `dark` argument) and an image sky's (W, H).
+    `host_constants` reads them once, before a frame or a capture; a
+    captured frame bakes them into its kernels' arguments, so they enter
+    the graph's key (`render/graphs.py`)."""
+    dark_sky: float
+    sky_wh: Optional[tuple]
+
+
+# (weak reference, version) of the scalars last read, by the id of the
+# dark_sky tensor: a scene whose scalars were not written since keeps its
+# host constants without a read of the card
+_HOST_MEMO = {}
+
+
+def host_constants(scene) -> HostConstants:
+    """The frame's host reads (`HostConstants`), memoised per scene: a read
+    of the card happens only for scalars that are new or were written in
+    place since the last read (each tensor's version counter, which every
+    in-place op bumps)."""
+    ts = (scene.dark_sky, scene.sky_w, scene.sky_h)
+    stamp = tuple((weakref.ref(t), t._version) for t in ts)
+    hit = _HOST_MEMO.get(id(ts[0]))
+    if hit is not None and all(r() is t and v == t._version
+                               for (r, v), t in zip(hit[0], ts)):
+        return hit[1]
+    out = HostConstants(float(scene.dark_sky), _sky_wh(scene))
+    _HOST_MEMO.clear()    # one scene's constants: no growth, no stale ids
+    _HOST_MEMO[id(ts[0])] = (stamp, out)
+    return out
+
+
 class FrameTables(NamedTuple):
     """The per-frame scene tables the kernels read (`prepare`)."""
     intersect: tuple             # first_hits: (sph, quad)
@@ -122,17 +156,22 @@ class FrameTables(NamedTuple):
 
 @torch.no_grad()
 def prepare(scene):
-    """The per-frame scene tables the kernels read (built once)."""
+    """The per-frame scene tables the kernels read (built once): the
+    frame's host reads (`host_constants`, memoised per scene, so a read of
+    the card happens before a capture, never inside it), and the tables
+    built on the scene's device, inside a captured frame's graph."""
+    host = host_constants(scene)
     meshes = scene.mesh_mat.shape[0] > 0
     uv = scene.sphere_uv_needed and not _no_atlas(scene)
     return FrameTables(
-        kintersect.intersect_tables(scene), kshade.shade_tables(scene),
+        kintersect.intersect_tables(scene),
+        kshade.shade_tables(scene, dark=host.dark_sky),
         kintersect.mesh_tables(scene) if meshes else None,
         ktraverse.traverse_tables(scene) if meshes else None,
         (kshadow.shadow_tables(scene) if scene.light_pos.shape[0] > 0
          else None),
         kintersect.sphere_tex_table(scene) if uv else None,
-        kshade.mat_pair_table(scene) if uv else None, _sky_wh(scene))
+        kshade.mat_pair_table(scene) if uv else None, host.sky_wh)
 
 
 def _sky_wh(scene):
@@ -840,7 +879,10 @@ class _TraceRecordReplay(torch.autograd.Function):
         o, d, time = inputs[nf:nf + 3], inputs[nf + 3:nf + 6], inputs[-1]
         out, rec, states = _trace_loop(scene, cfg, o, d, time, keys,
                                        tables, with_rec=True)
-        ctx.scene, ctx.cfg, ctx.keys = scene, cfg, keys
+        # dark_sky as the host float `prepare` read: the sweep reads no
+        # scalar from the card
+        ctx.scene, ctx.cfg, ctx.keys, ctx.dark = scene, cfg, keys, \
+            tables.shade[2]
         ctx.rec, ctx.states, ctx.time = rec, states, time
         ctx.o, ctx.d = o, d
         return out
@@ -854,7 +896,7 @@ class _TraceRecordReplay(torch.autograd.Function):
         if ctx.states:
             gscene, go, gd, gtime, gtex = replay_bwd.replay_backward(
                 scene, cfg, ctx.time, ctx.keys, rec, ctx.states,
-                g.contiguous())
+                g.contiguous(), dark=ctx.dark)
         else:
             gscene, go, gd, gtime, gtex = _general_backward(
                 scene, cfg, ctx.keys, rec, ctx.o, ctx.d, ctx.time,

@@ -9,6 +9,14 @@ atomically, and a restarted render re-renders only the missing tiles. A
 pixel's random streams depend only on its id and the sample, so a tile's
 radiance equals the same pixels' radiance in a direct render, and the
 store's format is the JAX package's, so either package resumes the other's.
+
+Compiled frames: `render` and the tiled render trace each chunk or tile
+through `render_frame`, the no-grad `render_pixels` replayed from a CUDA
+graph on the card (`render/graphs.py`, the counterpart of the JAX
+package's jitted `render_pixels`): a frame has at most two chunk shapes
+and a tiled render at most four tile shapes, each one graph. On the CPU,
+and with `kernels="off"`, `render_frame` is the eager body.
+`render_pixels` stays the eager, differentiable function.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import torch
 
 from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
-from tracer_torch.render import integrator
+from tracer_torch.render import graphs, integrator
 from tracer_torch.render.camera import Camera, generate_rays
 from tracer_torch.render.film import TileManifest, to_image
 
@@ -69,12 +77,47 @@ def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
     return acc
 
 
+def render_frame(scene, camera: Camera, cfg: RenderConfig, width: int,
+                 height: int, pixel_ids, nsamples: int, seed: int,
+                 first_sample: int = 0, cache=None):
+    """`render_pixels` without grad (the SUM of `nsamples` samples, [N, 3]
+    f32), by a graph of `cache` (default `graphs.CACHE`) where it is
+    active (CUDA tensors, the kernels on): captured at the first call with
+    a new key (`frame_key`) and replayed from the second. Every scene and
+    route is graphed: the fused and the general bounce, meshes and
+    lights. The pixel ids are copied into the graph's buffer."""
+    cache = graphs.CACHE if cache is None else cache
+
+    def body(pid):
+        with torch.no_grad():
+            return render_pixels(scene, camera, cfg, width, height, pid,
+                                 nsamples, seed, first_sample)
+
+    if not cache.active(pixel_ids, cfg):
+        return body(pixel_ids)
+    key = frame_key(scene, camera, cfg, width, height, pixel_ids, nsamples,
+                    seed, first_sample)
+    return cache.call(key, body, (pixel_ids,), keep=(scene, camera))
+
+
+def frame_key(scene, camera: Camera, cfg: RenderConfig, width: int,
+              height: int, pixel_ids, nsamples: int, seed: int,
+              first_sample: int = 0):
+    """`render_frame`'s graph key (`render/graphs.py`): the static
+    arguments, the scene's, camera's and config's signature, the host
+    constants and the pixel ids' shape."""
+    return ("frame", graphs.signature((scene, camera, cfg)), width, height,
+            nsamples, seed, first_sample, integrator.host_constants(scene),
+            graphs.meta(pixel_ids))
+
+
 @torch.no_grad()
 def render(scene, camera: Camera, cfg: RenderConfig, width=None,
            height=None, nsamples=None, progress=False, ckpt_dir=None,
            tile=128, host=0, n_hosts=1):
     """Full-frame render -> float32 numpy [H, W, 3] gamma-corrected image,
-    traced on the scene's device in chunks of `cfg.rays_per_batch` pixels.
+    traced on the scene's device in chunks of `cfg.rays_per_batch` pixels
+    (`render_frame`: a graph replay per chunk on the card).
 
     With `ckpt_dir`, renders tile by tile (`tile` x `tile` pixels) with
     atomic per-tile checkpoints and resumes exactly: tiles already done
@@ -95,8 +138,8 @@ def render(scene, camera: Camera, cfg: RenderConfig, width=None,
     for lo in range(0, n_pix, chunk):
         hi = min(lo + chunk, n_pix)
         pid = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        rad = render_pixels(scene, camera, cfg, width, height, pid,
-                            nsamples, cfg.seed)
+        rad = render_frame(scene, camera, cfg, width, height, pid,
+                           nsamples, cfg.seed)
         film[lo:hi] = rad.cpu().numpy()
         if progress:
             print(f"  pixels {hi}/{n_pix}", flush=True)
@@ -107,7 +150,8 @@ def _render_tiled(scene, camera, cfg, width, height, nsamples, ckpt_dir,
                   tile, host, n_hosts, progress):
     """The tiled, checkpointed render (`render(ckpt_dir=...)`). The JAX
     package pads each edge tile to tile*tile ids for one jit cache entry;
-    the port traces a tile's own ids."""
+    the port traces a tile's own ids, one graph a tile shape
+    (`render_frame`)."""
     man = TileManifest(width, height, tile, ckpt_dir)
     for t in man.tiles_for_host(host, n_hosts):
         if man.done(t, nsamples):
@@ -115,8 +159,8 @@ def _render_tiled(scene, camera, cfg, width, height, nsamples, ckpt_dir,
                 print(f"  tile {t}: already done, skipping", flush=True)
             continue
         pids = torch.from_numpy(man.tile_pixels(t)).to(scene.device)
-        rad = render_pixels(scene, camera, cfg, width, height, pids,
-                            nsamples, cfg.seed)
+        rad = render_frame(scene, camera, cfg, width, height, pids,
+                           nsamples, cfg.seed)
         man.save_tile(t, rad.cpu().numpy(), nsamples)
         if progress:
             print(f"  tile {t}: rendered {pids.shape[0]} px", flush=True)

@@ -505,7 +505,7 @@ def _onehot_accum(acc_t, idx, rows):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def replay_backward(scene, cfg, time, keys, rec, states, g):
+def replay_backward(scene, cfg, time, keys, rec, states, g, dark):
     """Full hand-written backward of the replay.
 
     rec: per-bounce records [(reci [4, N] i32, recf [8, N] f32, ...)] from
@@ -517,7 +517,9 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
     of cotangents for `GRAD_FIELDS` (tex_data and nm_data excluded — the
     caller folds those); gtex the per-bounce texel cotangents [6, N]
     (img(3), rnm(3)) of bounces 0..B-2 (the last bounce fetches no texel
-    in this class)."""
+    in this class). `dark`: `scene.dark_sky` as a host float (the forward's
+    `integrator.host_constants`, kept in `_TraceRecordReplay`'s ctx), so
+    the sweep reads nothing from the card."""
     from tracer_torch.kernels import shade_bwd as kbwd
 
     B = cfg.max_bounces
@@ -548,7 +550,7 @@ def replay_backward(scene, cfg, time, keys, rec, states, g):
         reci, recf = rec[b][:2]
         a, bb, acc = kbwd.bounce_bwd_tiles(
             states[b], reci[0], recf, tables, rng.salted(keys, b), time, a,
-            gpix, acc, float(B - b), float(scene.dark_sky), S=S, Q=Q,
+            gpix, acc, float(B - b), dark, S=S, Q=Q,
             ref=ref, eps=cfg.epsilon, has_pair=has_pair, last=b == B - 1,
             kernels=cfg.kernels)
         if b < B - 1:

@@ -178,10 +178,36 @@ def _load_ckpt(path: str, params: Dict, opt) -> int:
     return step
 
 
+def graph_step_ok(scene, cfg: RenderConfig, pixel_ids, mesh=None,
+                  cache=None) -> bool:
+    """The rule for a graphed training step (`make_step`): the graph cache
+    is active (CUDA tensors, the kernels on), the step is not sharded, the
+    gradient is the record-replay one (`custom_vjp="on"`) and the scene is
+    in the hand-written backward's class (`replay_bwd.hand_bwd_ok`: the
+    Cornell family, textured too). The general backward (about 149,000
+    launches a 16-spp step), the plain autodiff route and the sharded step
+    (`mesh`: collectives between the backward and the update) run
+    eagerly."""
+    from tracer_torch.render import graphs, replay_bwd
+    cache = graphs.CACHE if cache is None else cache
+    return (mesh is None and cfg.custom_vjp == "on"
+            and cache.active(pixel_ids, cfg)
+            and replay_bwd.hand_bwd_ok(scene, cfg))
+
+
 def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
-              nsamples: int, mesh=None):
+              nsamples: int, mesh=None, cache=None):
     """The optimization step of `fit`: L2 image loss, its gradients by
     `loss.backward()`, one update of `opt` (which holds the params).
+
+    Where `graph_step_ok` holds, the step's body (`apply_params`, the
+    render, the loss, `loss.backward()` and the grad norm) is one graph of
+    `cache` (default `graphs.CACHE`, the counterpart of the JAX package's
+    jitted step), captured at the first call and replayed from the second:
+    the gradients land in the graph's static buffers and each leaf's
+    `.grad` is set to a copy of its own. The update stays eager:
+    `opt.step()` after the replay, so the parameters, the Adam state and
+    the checkpoints are those of the eager step, bit for bit.
 
     With `mesh` (`dist.sharding.make_ray_mesh`) the render is sharded:
     each rank's loss is its dp block's share of the mean over all N * 3
@@ -193,21 +219,35 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
     (loss, grad_norm), both 0-d tensors on the scene's device; grad_norm
     is the global norm of the (reduced) gradients (optax.global_norm)."""
     from tracer_torch.dist import sharding
-    from tracer_torch.render.renderer import render_pixels
+    from tracer_torch.render import graphs
+    from tracer_torch.render.renderer import frame_key, render_pixels
 
     target = _as_tensor(target).reshape(-1, 3)
+    cache = graphs.CACHE if cache is None else cache
 
-    def step_fn(params, scene, camera, pixel_ids, seed):
-        tgt = target.to(pixel_ids.device)
-        leaves = [params[k] for k in sorted(params)]
-        opt.zero_grad(set_to_none=True)
-        s, c = apply_params(scene, camera, params)
-        if mesh is None:
+    def body(s, c, leaves, tgt, pixel_ids, seed):
+        """The loss, the grad norm and each leaf's gradient, from leaves
+        whose `.grad` is None (inside a capture: allocated in the
+        graph's pool)."""
+        for p in leaves:
+            p.grad = None
+        with torch.enable_grad():
             img = render_pixels(s, c, cfg, width, height, pixel_ids,
                                 nsamples, seed) / nsamples
             loss = torch.mean((img - tgt) ** 2)
             loss.backward()
-        else:
+        gnorm = torch.sqrt(torch.stack([
+            torch.sum(p.grad * p.grad) if p.grad is not None
+            else p.new_zeros(()) for p in leaves]).sum())
+        return loss.detach(), gnorm, [p.grad for p in leaves]
+
+    def step_fn(params, scene, camera, pixel_ids, seed):
+        nonlocal target
+        target = tgt = target.to(pixel_ids.device)   # moved once
+        leaves = [params[k] for k in sorted(params)]
+        opt.zero_grad(set_to_none=True)
+        s, c = apply_params(scene, camera, params)
+        if mesh is not None:
             img = sharding.render_pixels_sharded(
                 s, c, cfg, width, height, pixel_ids, nsamples, seed, mesh)
             nb = img.shape[0]
@@ -216,11 +256,21 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
             loss.backward()
             sharding.all_reduce_grads(mesh, leaves)
             loss = sharding.sum_over_dp(mesh, loss.detach())
-        gnorm = torch.sqrt(torch.stack([
-            torch.sum(p.grad * p.grad) if p.grad is not None
-            else p.new_zeros(()) for p in leaves]).sum())
+            gnorm = torch.sqrt(torch.stack([
+                torch.sum(p.grad * p.grad) if p.grad is not None
+                else p.new_zeros(()) for p in leaves]).sum())
+        elif graph_step_ok(s, cfg, pixel_ids, mesh, cache):
+            key = ("step", graphs.signature((leaves, tgt))) + frame_key(
+                s, c, cfg, width, height, pixel_ids, nsamples, seed)
+            loss, gnorm, grads = cache.call(
+                key, lambda pid: body(s, c, leaves, tgt, pid, seed),
+                (pixel_ids,), keep=(s, c, leaves, tgt))
+            for p, g in zip(leaves, grads):
+                p.grad = g
+        else:
+            loss, gnorm, _ = body(s, c, leaves, tgt, pixel_ids, seed)
         opt.step()
-        return loss.detach(), gnorm
+        return loss, gnorm
 
     return step_fn
 

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --bench   # the build and the rays/s benchmark
     python3 chip_smoke.py --graph   # the build and the compiled entry
                                     # points against their eager bodies
+                                    # (one NCCL rank's sharded ones too)
 
 Builds the port's CUDA kernels from `tracer_torch/kernels/csrc/` (printing
 each kernel's registers and spills), holds each against its plain PyTorch
@@ -97,12 +98,22 @@ random_spheres at 4 spp, 4 `fit` steps on Cornell and their resume, the
 launches of a replay, the host syncs of a compiled and an eager call,
 walls in turns, the device's idle share under the profiler, each graph's
 capture seconds and pool; and a body that reads the card, whose capture
-must raise. The renders and protocol steps above go through the same
-graphs (their timed call is a replay). Then
+must raise. Then the compiled routes beyond the Cornell family
+(`graph_general_phase`): the general 16-spp protocol step on
+rt_weekend_standin and flamingo_standin, the plain autodiff step
+(custom_vjp="off") on Cornell at 16 spp and flamingo_standin at 4 spp, 4
+`fit` steps on rt_weekend_standin at 4 spp and their resume, and the
+`benchmark --occupancy` frame, each held as above (a replay's launches
+equal to the eager call's, 0 host syncs in a replay). The Cornell renders
+and protocol steps above go through the same graphs (their timed call is
+a replay); the phases that time, spy on or profile the eager general and
+plain autodiff steps run inside `graphs.CACHE.disabled()`. Then
 distribution (`dist_phases`): (a) a process group of one rank over NCCL,
-whose (1, 1) mesh renders the 16-spp Cornell frame bit-equal to
-`render_pixels / 16` and whose `fit(mesh=)` equals `fit()` bit for bit
-over 3 steps; (b) two ranks sharing the card over gloo (NCCL refuses two
+whose (1, 1) mesh renders the 16-spp Cornell frame by a graph bit-equal
+to its eager body and to `render_pixels / 16`, and whose `fit(mesh=)`,
+compiled with its all-reduce in the graph, equals its eager run, its
+resume and `fit()` bit for bit over 4 steps (`[graph]` lines); (b) two
+ranks sharing the card over gloo (NCCL refuses two
 ranks on one card) on the (2, 1) and (1, 2) meshes: the gathered frame
 against the unsharded render (bit-equal on (2, 1), within 1e-5 on
 (1, 2)), `train_step` within rtol 1e-4 of the unsharded step, each rank's
@@ -112,7 +123,9 @@ two cards, (b) over NCCL too (the line says which variant ran), and with
 four, four NCCL ranks on (2, 2) and (4, 1), the pod mesh sized by the
 card count, `dryrun_multichip(4)` and README's four-card recipe (shell
 processes joined by the env vars); each step's gradients and grad norm
-are held against the unsharded step's. Last, the
+are held against the unsharded step's, and each rank's compiled frame
+and step against its eager ones (graphs on NCCL, eager on gloo by the
+rule; `[graph]` lines). Last, the
 plain autodiff backward (`plain_ad_phase`, custom_vjp="off"): the Cornell
 16-spp protocol step and flamingo_standin at 4 spp (mesh_verts), their
 walls, peak memory, launches (B1 once a bounce, B5 and B6 on the mesh
@@ -158,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -1309,6 +1323,33 @@ def rowsum_launches(scene, trainable, spp):
                   + (BOUNCES if lit else BOUNCES - 1) * geo)
 
 
+def general_launches(scene, cfg, spp, trainable):
+    """Kernel launches of one protocol or training step of `spp` samples
+    on the general backward (custom_vjp="on" outside the hand-written
+    class) or the plain autodiff route (custom_vjp="off"): B1, B5 on mesh
+    scenes and B6 on lit ones once a bounce; B2 once a bounce on the fused
+    record forward (not on the plain autodiff route); no B3; B4 once a
+    sample where tex_data trains and the atlas has texel rows (not on the
+    plain autodiff route, whose phases train no texels); the row sums of
+    `rowsum_launches`. Kernels not launched are left out."""
+    n = spp * cfg.max_bounces
+    plain_ad = cfg.custom_vjp == "off"
+    texels = "tex_data" in trainable and scene.tex_data.shape[0] > 1
+    out = dict(first_hits=n,
+               shade_scatter=n if (integrator._fused(scene, cfg)
+                                   and not plain_ad) else 0,
+               sorted_fold=spp if texels and not plain_ad else 0,
+               traverse=n if scene.mesh_mat.shape[0] > 0 else 0,
+               shadow=n if scene.light_pos.shape[0] > 0 else 0,
+               row_sum=rowsum_launches(scene, trainable, spp))
+    return {k: v for k, v in out.items() if v}
+
+
+def times(counts, k):
+    """The launch counts `counts` of one call, `k` calls over."""
+    return {name: v * k for name, v in counts.items()}
+
+
 def index_add_route(idx, g, rows, kernels="auto"):
     """The row sums on their plain version (`index_add_`, float atomics on
     the card): the general backward's route before the row-sum kernel."""
@@ -1330,6 +1371,20 @@ def grads_equal(a, b):
     return a.keys() == b.keys() and all(bit_equal(a[k], b[k]) for k in a)
 
 
+def eager_route(fn):
+    """`fn` with every entry point on its eager body
+    (`graphs.CACHE.disabled()`): the phases that time, spy on or profile
+    the eager general and plain autodiff steps (a spy or a swapped row
+    sum runs in Python, which a replay does not). Their compiled twins
+    are `[graph]` lines."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with graphs.CACHE.disabled():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@eager_route
 def general_protocol_phase(label, sb, spp, trainable, reps=3):
     """fwd+bwd of the protocol loss on a scene outside the hand-written
     class (lights, meshes, an image sky, textured spheres): the record
@@ -1394,14 +1449,9 @@ def general_protocol_phase(label, sb, spp, trainable, reps=3):
         raise AssertionError(f"general protocol {label}: two backward "
                              f"passes gave different gradients")
     lit = scene.light_pos.shape[0] > 0
-    meshes = scene.mesh_mat.shape[0] > 0
     texels = "tex_data" in trainable and scene.tex_data.shape[0] > 1
-    expect = dict(first_hits=spp * BOUNCES, shade_scatter=spp * BOUNCES,
-                  bounce_bwd=0, sorted_fold=spp if texels else 0,
-                  traverse=spp * BOUNCES if meshes else 0,
-                  shadow=spp * BOUNCES if lit else 0,
-                  row_sum=rowsum_launches(scene, trainable, spp))
-    if launches != expect:
+    expect = general_launches(scene, cfg, spp, trainable)
+    if {k: v for k, v in launches.items() if v} != expect:
         raise AssertionError(f"general protocol {label}: launches "
                              f"{launches}, expected {expect}")
     if texels and fold_segs != [BOUNCES if (
@@ -1490,6 +1540,7 @@ def rowsum_check(name, got, want, idx, g):
     return err, scale
 
 
+@eager_route
 def capture_row_sums(scene, cfg, trainable):
     """The row sums of one 1-spp protocol step, as the backward made them:
     {(rows, columns): (idx, g)}, of each table shape the call with the
@@ -1571,6 +1622,7 @@ def lit_textured_cornell():
     return sb
 
 
+@eager_route
 def atomics_phase(label, sb, spp, trainable, custom_vjp="on"):
     """The kernels of one protocol step (the general backward, or the
     plain autodiff route with custom_vjp="off") whose names say that they
@@ -2360,12 +2412,13 @@ def entry_point_phases(flat_sb, pair_sb, rtw_sb):
 # The compiled entry points (tracer_torch/render/graphs.py): CUDA graphs
 # ---------------------------------------------------------------------------
 
-def in_turns(fns, reps):
+def in_turns(fns, reps, warm=True):
     """{name: sorted walls}: one warm-up call of each of `fns` ({name: fn},
-    each call ending in a synchronise), then `reps` rounds that call each
-    once, the order reversed every other round (a, b, b, a, ...)."""
+    each call ending in a synchronise; skipped with `warm=False`, where the
+    caller has just called each), then `reps` rounds that call each once,
+    the order reversed every other round (a, b, b, a, ...)."""
     names = list(fns)
-    for n in names:
+    for n in names if warm else ():
         fns[n]()
         torch.cuda.synchronize()
     walls = {n: [] for n in names}
@@ -2378,20 +2431,24 @@ def in_turns(fns, reps):
     return {n: sorted(w) for n, w in walls.items()}
 
 
+_PROFILED = []   # whether this process has run the profiler yet
+
+
 def profiled(fn):
     """(wall ms, device busy ms, idle share, kernels) of one call of `fn`
-    under torch.profiler, after a warm-up call and a first profiled call
-    (the first traced replay of a graph can cost the tracer seconds); a
+    under torch.profiler, right after the caller's own calls of `fn`; the
+    process's first use of the profiler is profiled twice and the second
+    kept (the first traced call cost the tracer seconds). A
     replayed graph's kernels are counted as the eager ones are."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(1 if _PROFILED else 2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+    _PROFILED.append(True)
     evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     return wall, busy, 1.0 - busy / wall, sum(e.count for e in evs), {
@@ -2413,61 +2470,80 @@ def all_bit_equal(a, b):
     return a == b
 
 
-def graph_check(label, compiled, eager, want_launches, reps=0,
-                profile=False):
+def graph_check(label, compiled, eager, want_launches=None, reps=0,
+                profile=False, **extra):
     """One compiled entry point against its eager body in the same call:
     the first call (the warm-up's result, then the capture), a replay and
-    the eager body, all bit-equal; the launches of one replay (the counts
-    reset just before it and read just after; the kernels of the path
-    must have run); the host synchronisations of one replay and of one
-    eager call; with `reps`, the walls of both in turns; with `profile`,
-    the device busy time and idle share of both."""
+    the eager body, all bit-equal; the launches of the replay and of the
+    eager call (the counts reset just before each and read just after),
+    which must be equal (and `want_launches`, where given), the kernels
+    of the path having run; the host synchronisations of that replay and
+    that eager call; with `reps`, the walls of both in turns (median and
+    spread, after those calls); with `profile` ("both", or "compiled"
+    where the eager step's profile is another line's), the device busy
+    time and idle share. Each line also gives the graph's warm-up,
+    capture and instantiate seconds, its pool and the peak memory
+    allocated over the first call, the replay and the eager call.
+    Returns (host syncs of the replay, of the eager call, the replay's
+    launches)."""
     cache = graphs.CACHE
     n0 = cache.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     first = compiled()
     g = cache.last
     if cache.captures != n0 + 1:
         raise AssertionError(f"graph {label}: {cache.captures - n0} "
                              f"captures at the first call")
-    torch.cuda.synchronize()
-    reset_launches()
-    rep = compiled()
-    torch.cuda.synchronize()
-    launches = launched(*KERNEL_MODULES)
-    if launches != want_launches:
-        raise AssertionError(f"graph {label}: a replay's launches "
-                             f"{launches}, expected {want_launches}")
+    out = {}
+
+    def run(name, fn):
+        def call():
+            out[name] = fn()
+        reset_launches()
+        syncs, where = host_syncs(call)
+        return launched(*KERNEL_MODULES), syncs, where
+
+    launches, syncs, where = run("replay", compiled)
     if g.replays != 1 or cache.captures != n0 + 1:
         raise AssertionError(f"graph {label}: the second call did not "
                              f"replay the graph")
     with cache.disabled():
-        ref = eager()
-    if not (all_bit_equal(first, ref) and all_bit_equal(rep, ref)):
+        eager_launches, syncs_eager, where_eager = run("eager", eager)
+    if not launches or launches != eager_launches or (
+            want_launches is not None and launches != want_launches):
+        raise AssertionError(f"graph {label}: a replay's launches "
+                             f"{launches}, the eager call's "
+                             f"{eager_launches}, expected {want_launches}")
+    if not (all_bit_equal(first, out["eager"])
+            and all_bit_equal(out["replay"], out["eager"])):
         raise AssertionError(f"graph {label}: compiled differs from eager")
-    syncs, where = host_syncs(compiled)
-    with cache.disabled():
-        syncs_eager, where_eager = host_syncs(eager)
-    kv = dict(vs_eager="bit-equal", launches_a_replay=launches,
-              host_syncs=syncs, host_syncs_eager=syncs_eager,
-              sync_at_eager=where_eager,
+    if syncs:
+        raise AssertionError(f"graph {label}: {syncs} host syncs in a "
+                             f"replay: {where}")
+    kv = dict(extra, vs_eager="bit-equal", launches_a_replay=launches,
+              launches_eager="equal", host_syncs=syncs,
+              host_syncs_eager=syncs_eager, sync_at_eager=where_eager,
               warmup_s=f"{g.times['warmup_s']:.3f}",
               capture_s=f"{g.times['capture_s']:.3f}",
               instantiate_s=f"{g.times['instantiate_s']:.3f}",
-              pool_gb=f"{g.pool_bytes / 1e9:.3f}")
-    if syncs:
-        kv["sync_at"] = where
+              pool_gb=f"{g.pool_bytes / 1e9:.3f}",
+              peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     walls = {}
     if reps:
         def off():
             with cache.disabled():
                 return eager()
-        walls = in_turns(dict(eager=off, compiled=compiled), reps)
+        walls = in_turns(dict(eager=off, compiled=compiled), reps,
+                         warm=False)
         kv.update(wall_s_eager=spread(walls["eager"]),
                   wall_s_compiled=spread(walls["compiled"]))
     if profile:
         # the idle share under the profiler, and against the median wall
         # of the calls above, which ran without it
         for name, fn in (("compiled", compiled), ("eager", eager)):
+            if profile == "compiled" and name == "eager":
+                continue
             with contextlib.ExitStack() as st:
                 if name == "eager":
                     st.enter_context(cache.disabled())
@@ -2479,7 +2555,104 @@ def graph_check(label, compiled, eager, want_launches, reps=0,
                 idle_share_vs_median_wall=f"{1.0 - busy / med:.3f}",
                 device_launches=n, **per)
     say("graph", case=label, **kv)
-    return syncs, syncs_eager
+    return syncs, syncs_eager, launches
+
+
+def fit_check(label, scene, cam, cfg, trainable, offsets, lr, want,
+              mesh=None, steps=4):
+    """`train.fit` for `steps` steps from a seeded start, compiled (a
+    graph captured at the first step, replayed from the second) against
+    eager (`graphs.CACHE.disabled()`), and a compiled run of `steps` - 2
+    steps resumed to `steps`; with `mesh`, also unsharded `fit()`
+    compiled. Every run's losses, grad norms, params and checkpointed Adam
+    state bit-equal to the compiled one; one capture a run; the launches
+    of the compiled run equal to the eager run's and to `want`, one
+    step's launches by the formula (`call_launches`, `general_launches`),
+    `steps` times (a replay counts what it stands for). Prints the walls of steps 2 on, and of a kept
+    compiled step (`make_step`) the host syncs of a replay (0) and its
+    profile."""
+    cache = graphs.CACHE
+    target = train_target(scene, cam, cfg, trainable, cfg.nsamples)
+    s0, c0 = train_start(scene, cam, trainable, offsets, seed=1)
+    kw = dict(trainable=trainable, lr=lr, width=W, height=H,
+              nsamples=cfg.nsamples, ckpt_every=steps, seed=cfg.seed)
+    tmp = tempfile.mkdtemp()
+    runs = {}
+    names = ("compiled", "eager", "resumed") + (
+        ("unsharded",) if mesh is not None else ())
+    for name in names:
+        d = os.path.join(tmp, name)
+        m = None if name == "unsharded" else mesh
+        with contextlib.ExitStack() as st:
+            if name == "eager":
+                st.enter_context(cache.disabled())
+            if name == "resumed":
+                T.fit(s0, c0, cfg, target, steps=steps - 2, ckpt_dir=d,
+                      mesh=m, **kw)
+            reset_launches()
+            n0 = cache.captures
+            s1, c1, hist = T.fit(s0, c0, cfg, target, steps=steps,
+                                 ckpt_dir=d, mesh=m, **kw)
+            torch.cuda.synchronize()
+        runs[name] = (T.split_params(s1, c1, trainable), hist,
+                      ckpt_leaves(os.path.join(d, "train.npz")),
+                      launch_counts(*KERNEL_MODULES), cache.captures - n0)
+    pa, ha, la, na, capa = runs["compiled"]
+    ne, cape = runs["eager"][3], runs["eager"][4]
+    if (na != ne or {k: v for k, v in na.items() if v} != times(want, steps)
+            or capa != 1 or cape != 0):
+        raise AssertionError(f"graph {label}: launches {na} compiled, {ne} "
+                             f"eager, {times(want, steps)} expected; {capa} "
+                             f"and {cape} captures")
+    for name in names[1:]:
+        pb, hb, lb, _, capb = runs[name]
+        steps_b = [(h["loss"], h["grad_norm"]) for h in hb]
+        if not (steps_b == [(h["loss"], h["grad_norm"])
+                            for h in ha][-len(hb):]
+                and all(bit_equal(pa[k].detach(), pb[k].detach())
+                        for k in trainable) and leaves_equal(la, lb)):
+            raise AssertionError(f"graph {label}: {name} run differs from "
+                                 f"the compiled one")
+    walls = {name: sorted(h["step_s"] for h in runs[name][1][1:])
+             for name in ("compiled", "eager")}
+    # the compiled step alone (`fit` reads each step's loss to the host
+    # for its log): its host syncs and its profile, on a kept step
+    params = T.split_params(s0, c0, trainable)
+    step = T.make_step(
+        T._adam_default(lr)([params[k] for k in sorted(params)]),
+        T.guard_config(cfg, trainable), target, W, H, cfg.nsamples, mesh)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+
+    def call():
+        return step(params, s0, c0, pid, cfg.seed)
+
+    call()
+    call()
+    g = cache.last
+    syncs, where = host_syncs(call)
+    if syncs or g.replays < 2:
+        raise AssertionError(f"graph {label}: {syncs} host syncs in a "
+                             f"replayed step ({where}), {g.replays} "
+                             f"replays")
+    wall, busy, idle, n, _ = profiled(call)
+    med = walls["compiled"][len(walls["compiled"]) // 2] * 1e3
+    say("graph", case=label, steps=steps, spp=cfg.nsamples,
+        trainable="+".join(trainable),
+        mesh=dict(mesh.shape) if mesh is not None else None,
+        vs_eager="bit-equal", resume="bit-equal",
+        **({"vs_unsharded": "bit-equal"} if mesh is not None else {}),
+        launches_a_step={k: v // steps for k, v in na.items() if v},
+        step_s_eager=spread(walls["eager"]),
+        step_s_compiled=spread(walls["compiled"]), host_syncs_step=syncs,
+        profile_compiled=dict(
+            wall_ms=f"{wall:.1f}", device_busy_ms=f"{busy:.1f}",
+            idle_share=f"{idle:.3f}",
+            idle_share_vs_median_wall=f"{1.0 - busy / med:.3f}",
+            device_launches=n),
+        capture_s=f"{g.times['capture_s']:.3f}",
+        instantiate_s=f"{g.times['instantiate_s']:.3f}",
+        pool_gb=f"{g.pool_bytes / 1e9:.3f}",
+        losses=[f"{h['loss']:.6g}" for h in ha])
 
 
 def graph_phase(flat_sb, pair_sb, reps=3):
@@ -2524,7 +2697,7 @@ def graph_phase(flat_sb, pair_sb, reps=3):
                                              c.seed)
 
     want = call_launches(flat, cfg, SPP)
-    sync_frame, _ = graph_check("cornell_frame", frame(flat, SPP),
+    sync_frame, _, _ = graph_check("cornell_frame", frame(flat, SPP),
                                 frame(flat, SPP), want, reps, profile=True)
     add(want)
     bf = bench.Inputs(flat, cam, cfg, W, H, pid, SPP)
@@ -2534,7 +2707,7 @@ def graph_phase(flat_sb, pair_sb, reps=3):
     for label, scene in (("cornell", flat), ("cornell_textured", pair)):
         b = bench.Inputs(scene, cam, cfg, W, H, pid, SPP)
         want = call_launches(scene, cfg, SPP, TRAINABLE)
-        sync_step, sync_eager = graph_check(
+        sync_step, sync_eager, _ = graph_check(
             f"{label}_protocol_step",
             lambda b=b: bench.protocol_step(b, TRAINABLE),
             lambda b=b: bench.protocol_step(b, TRAINABLE), want, reps,
@@ -2565,53 +2738,10 @@ def graph_phase(flat_sb, pair_sb, reps=3):
         raise AssertionError(f"graph: replays launched {total}")
 
     # fit on Cornell: compiled against eager, and the compiled resume
-    trainable = ("mat_diffuse", "sph_center", "cam_quaternion")
-    target = train_target(flat, cam, cfg, trainable, SPP)
-    s0, c0 = train_start(flat, cam, trainable,
-                         dict(mat_diffuse=0.05, sph_center=0.02,
-                              cam_quaternion=0.002), seed=1)
-    kw = dict(trainable=trainable, lr=2e-3, width=W, height=H, nsamples=SPP,
-              ckpt_every=4)
-    tmp = tempfile.mkdtemp()
-    runs = {}
-    for name in ("compiled", "eager", "resumed"):
-        d = os.path.join(tmp, name)
-        with contextlib.ExitStack() as st:
-            if name == "eager":
-                st.enter_context(cache.disabled())
-            if name == "resumed":
-                T.fit(s0, c0, cfg, target, steps=2, ckpt_dir=d, **kw)
-            reset_launches()
-            n0 = cache.captures
-            s1, c1, hist = T.fit(s0, c0, cfg, target, steps=4, ckpt_dir=d,
-                                 **kw)
-            torch.cuda.synchronize()
-        runs[name] = (T.split_params(s1, c1, trainable), hist,
-                      ckpt_leaves(os.path.join(d, "train.npz")),
-                      launch_counts(*KERNEL_MODULES), cache.captures - n0)
-    pa, ha, la, na, capa = runs["compiled"]
-    want = {k: v * 4 for k, v in call_launches(flat, cfg, SPP,
-                                               trainable).items()}
-    if {k: v for k, v in na.items() if v} != want or capa != 1:
-        raise AssertionError(f"graph fit: launches {na}, expected {want}; "
-                             f"{capa} captures")
-    for name in ("eager", "resumed"):
-        pb, hb, lb, _, _ = runs[name]
-        steps = [(h["loss"], h["grad_norm"]) for h in hb]
-        if not (steps == [(h["loss"], h["grad_norm"])
-                          for h in ha][-len(hb):]
-                and all(bit_equal(pa[k].detach(), pb[k].detach())
-                        for k in trainable) and leaves_equal(la, lb)):
-            raise AssertionError(f"graph fit: {name} run differs from the "
-                                 f"compiled one")
-    walls = {name: sorted(h["step_s"] for h in runs[name][1][1:])
-             for name in ("compiled", "eager")}
-    say("graph", case="cornell_fit", steps=4, trainable="+".join(trainable),
-        vs_eager="bit-equal", resume="bit-equal",
-        launches_a_step={k: v // 4 for k, v in want.items()},
-        step_s_eager=spread(walls["eager"]),
-        step_s_compiled=spread(walls["compiled"]),
-        losses=[f"{h['loss']:.6g}" for h in ha])
+    fit_train = ("mat_diffuse", "sph_center", "cam_quaternion")
+    fit_check("cornell_fit", flat, cam, cfg, fit_train,
+              dict(mat_diffuse=0.05, sph_center=0.02, cam_quaternion=0.002),
+              2e-3, call_launches(flat, cfg, SPP, fit_train))
     cache.clear()
 
     # the tiled render: compiled (a graph a tile shape) against the direct
@@ -2686,6 +2816,74 @@ def graph_phase(flat_sb, pair_sb, reps=3):
     cache.clear()
 
 
+def graph_general_phase(flat_sb, rtw_sb, flam_sb, reps=3):
+    """The compiled routes beyond the Cornell family against their eager
+    bodies, in the same call, at 850x480, 6 bounces (`[graph]` lines,
+    `graph_check`): the 16-spp protocol step (`bench.protocol_step`) on
+    the general backward, rt_weekend_standin (mat_diffuse, sph_center,
+    tex_data: B1, B2, B6, B4 and the row sums in the graph) and
+    flamingo_standin (mesh_verts, mat_diffuse, sph_center: B5 too); the
+    plain autodiff step (custom_vjp="off": B1, B5, B6 for the selections,
+    the bounces under `torch.utils.checkpoint`, the row sums) on Cornell
+    at 16 spp and flamingo_standin at 4 spp; 4 `fit` steps on
+    rt_weekend_standin at 4 spp and their resume (`fit_check`); the
+    `benchmark --occupancy` frame (`cli.occupancy_frame`) on Cornell.
+    Each: bit-equal outputs, a replay's launches equal to the eager
+    call's, 0 host syncs in a replay, the walls of `reps` calls in turns,
+    the compiled call's idle share under the profiler (the eager general
+    step's is `profile_phase`'s line), capture, instantiate seconds and
+    pool. Each replay's launches are also held against the formula
+    (`general_launches`, `call_launches`). Returns the launches of a
+    replay of the rt_weekend_standin 16-spp general step (the counts reset
+    just before it): the kernels line's row-sum count."""
+    from tracer_torch import bench
+    cache = graphs.CACHE
+    cache.clear()
+    cam = default_camera(W / H, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    cfg = RenderConfig(nsamples=SPP, width=W, height=H, max_bounces=BOUNCES)
+    flat = compile_scene(flat_sb, device=DEV)
+    rtw = compile_scene(rtw_sb, device=DEV)
+    flam = compile_scene(flam_sb, device=DEV)
+    rtw_train = ("mat_diffuse", "sph_center", "tex_data")
+    flam_train = ("mesh_verts", "mat_diffuse", "sph_center")
+    plain = dataclasses.replace(cfg, custom_vjp="off")
+    replays = {}
+    for label, scene, c, spp, trainable in (
+            ("rt_weekend_standin_general", rtw, cfg, SPP, rtw_train),
+            ("flamingo_standin_general", flam, cfg, SPP, flam_train),
+            ("cornell_plain_ad", flat, plain, SPP,
+             ("mat_diffuse", "sph_center")),
+            ("flamingo_standin_plain_ad", flam, plain, 4, flam_train)):
+        b = bench.Inputs(scene, cam, c, W, H, pid, spp)
+        if replay_bwd.hand_bwd_ok(scene, c) and c.custom_vjp == "on":
+            raise AssertionError(f"graph {label}: inside the hand-written "
+                                 f"class")
+        _, _, replays[label] = graph_check(
+            f"{label}_protocol_step",
+            lambda b=b, t=trainable: bench.protocol_step(b, t),
+            lambda b=b, t=trainable: bench.protocol_step(b, t),
+            general_launches(scene, c, spp, trainable), reps=reps,
+            profile="compiled", spp=spp, custom_vjp=c.custom_vjp,
+            trainable="+".join(trainable))
+        cache.clear()
+    c4 = dataclasses.replace(cfg, nsamples=4)
+    fit_check("rt_weekend_standin_fit", rtw, cam, c4, rtw_train,
+              dict(mat_diffuse=0.05, sph_center=0.02, tex_data=0.05), 1e-2,
+              general_launches(rtw, T.guard_config(c4, rtw_train), 4,
+                               rtw_train))
+    cache.clear()
+    # the occupancy frame: the rays and tables made once, as the CLI does
+    rays = cli.benchmark_rays(cam, cfg, W, H, pid)
+    tables = integrator.prepare(flat)
+    graph_check("cornell_occupancy_frame",
+                lambda: cli.occupancy_frame(flat, cfg, *rays, tables),
+                lambda: cli.occupancy_frame(flat, cfg, *rays, tables),
+                call_launches(flat, cfg, 1), reps=reps, profile="both")
+    cache.clear()
+    return replays["rt_weekend_standin_general"]
+
+
 # ---------------------------------------------------------------------------
 # Distribution (tracer_torch/dist/) and the plain autodiff backward
 # ---------------------------------------------------------------------------
@@ -2724,11 +2922,13 @@ def step_result(loss, s1, c1):
                 **{k: getattr(s1, k).cpu().numpy() for k in STEP_FIELDS})
 
 
+@eager_route
 def step_grads(scene, cam, cfg, pid, target, spp, mesh):
     """(grad norm, {leaf: gradient}) of `train_step`'s step on `mesh`:
     `train.make_step`, the step it delegates to, with its trainables and
-    SGD; the gradients as the update reads them, after the mesh's
-    reduction (a leaf without one: zeros)."""
+    SGD, run once and eagerly (a graph of new leaves would never replay);
+    the gradients as the update reads them, after the mesh's reduction (a
+    leaf without one: zeros)."""
     params = T.split_params(scene, cam, STEP_TRAINABLE)
     opt = torch.optim.SGD([params[k] for k in sorted(params)], lr=1e-2)
     step = T.make_step(opt, T.guard_config(cfg, STEP_TRAINABLE), target, W,
@@ -2739,15 +2939,82 @@ def step_grads(scene, cam, cfg, pid, target, spp, mesh):
             else p.grad.cpu().numpy()) for k, p in params.items()}
 
 
+def sharded_graphs(scene, cam, cfg, pid, target, spp, mesh, reps, blk):
+    """This rank's compiled sharded frame and step against the eager
+    ones: the frame (`render_pixels_sharded` without grad) `reps` times
+    after its first call, bit-equal to `blk` (the eager frame); a kept
+    `make_step(mesh=)` (SGD on `train_step`'s trainables) compiled and
+    eager, `reps` + 2 steps each from the same start, every step's loss
+    and the final params bit-equal, a replay's launches equal to the
+    eager step's; the host syncs of a compiled frame and step, and the
+    captures (one a route where the mesh's collectives are NCCL's, none
+    on gloo, which stays eager by the rule)."""
+    cache = graphs.CACHE
+    n0 = cache.captures
+    frame = torch.no_grad()(lambda: sharding_frame(scene, cam, cfg, pid,
+                                                   spp, mesh))
+    got, fwalls, flaunch = walls_of(frame, reps)
+    if not bit_equal(got, blk):
+        raise AssertionError(f"graph sharded {dict(mesh.shape)}: the "
+                             f"compiled frame differs from the eager one")
+    fsyncs, _ = host_syncs(frame)
+    runs = {}
+    for name in ("eager", "compiled"):
+        params = T.split_params(scene, cam, STEP_TRAINABLE)
+        opt = torch.optim.SGD([params[k] for k in sorted(params)], lr=1e-2)
+        fn = T.make_step(opt, T.guard_config(cfg, STEP_TRAINABLE), target,
+                         W, H, spp, mesh)
+        losses = []
+
+        def call(fn=fn, params=params, losses=losses):
+            loss, _ = fn(params, scene, cam, pid, 0)
+            losses.append(loss)
+            return loss
+
+        with contextlib.ExitStack() as st:
+            if name == "eager":
+                st.enter_context(cache.disabled())
+            _, walls, launches = walls_of(call, reps)
+            syncs, _ = host_syncs(call)
+        runs[name] = (torch.stack(losses), params, walls, launches, syncs)
+    (le, pe, _, ne, _), (lc, pc, swalls, nc, ssyncs) = (runs["eager"],
+                                                         runs["compiled"])
+    if not (bit_equal(le, lc) and ne == nc and all(
+            bit_equal(pe[k].detach(), pc[k].detach()) for k in pe)):
+        raise AssertionError(f"graph sharded {dict(mesh.shape)}: the "
+                             f"compiled steps differ from the eager ones "
+                             f"(launches {nc} against {ne})")
+    graphed = mesh.capturable
+    captures = cache.captures - n0
+    if captures != (2 if graphed else 0) or (graphed and (fsyncs
+                                                          or ssyncs)):
+        raise AssertionError(f"graph sharded {dict(mesh.shape)}: "
+                             f"{captures} captures, host syncs {fsyncs} / "
+                             f"{ssyncs}")
+    cache.clear()
+    return dict(graphed=graphed, captures=captures, frame_walls=fwalls,
+                frame_launches=flaunch, frame_syncs=fsyncs,
+                step_walls=swalls, step_launches=nc, step_syncs=ssyncs,
+                step_walls_eager=runs["eager"][2])
+
+
+def sharding_frame(scene, cam, cfg, pid, spp, mesh):
+    from tracer_torch.dist import sharding
+    return sharding.render_pixels_sharded(scene, cam, cfg, W, H, pid, spp,
+                                          cfg.seed, mesh)
+
+
 def dist_rank(shapes, spp, reps, pod):
     """One rank of a multi-rank phase: for each mesh shape, the sharded
     16-spp Cornell frame (`render_pixels_sharded`) and `train_step`, each
-    `reps` times after a warm-up: walls, this rank's launches, the seconds
-    spent in collectives (`sharding.collective_spans`: the card
+    `reps` times after a warm-up, eagerly (`graphs.CACHE.disabled()`;
+    `train_step` is eager anyway): walls, this rank's launches, the
+    seconds spent in collectives (`sharding.collective_spans`: the card
     synchronised around each collective), rank 0's gathered film, the
-    step's result, and its gradients and grad norm (`step_grads`); with
-    `pod`, rank 0's `render_image_multihost` frame on the host-major mesh
-    (`make_pod_mesh()`)."""
+    step's result, and its gradients and grad norm (`step_grads`); then
+    the compiled frame and step against the eager ones
+    (`sharded_graphs`); with `pod`, rank 0's `render_image_multihost`
+    frame on the host-major mesh (`make_pod_mesh()`)."""
     import torch.distributed as dist
 
     from tracer_torch.dist import multihost, sharding
@@ -2766,9 +3033,9 @@ def dist_rank(shapes, spp, reps, pod):
 
         @torch.no_grad()
         def frame():
-            with sharding.collective_spans() as s:
-                blk = sharding.render_pixels_sharded(
-                    scene, cam, cfg, W, H, pid, spp, cfg.seed, mesh)
+            with graphs.CACHE.disabled(), \
+                    sharding.collective_spans() as s:
+                blk = sharding_frame(scene, cam, cfg, pid, spp, mesh)
             spans[:] = s
             return blk
 
@@ -2789,10 +3056,13 @@ def dist_rank(shapes, spp, reps, pod):
             step_walls=swalls, step_launches=slaunch,
             step_coll_s=sum(t for _, t in spans), step=step_result(*res),
             grads=step_grads(scene, cam, cfg, pid, target, spp, mesh),
-            film=film if dist.get_rank() == 0 else None)
+            film=film if dist.get_rank() == 0 else None,
+            compiled=sharded_graphs(scene, cam, cfg, pid, target, spp,
+                                    mesh, reps, blk))
     if pod:
         pmesh = multihost.make_pod_mesh()
         img = multihost.render_image_multihost(scene, cam, cfg, pmesh)
+        graphs.CACHE.clear()
         out["pod"] = dict(shape=dict(pmesh.shape),
                           img=img if dist.get_rank() == 0 else None)
     return out
@@ -2800,9 +3070,13 @@ def dist_rank(shapes, spp, reps, pod):
 
 def dist_world1_phase(sb, spp):
     """(a) A process group of one rank over NCCL at full width: the
-    (1, 1) mesh's render equals `render_pixels / spp` bit for bit, and
-    `fit(mesh=...)` for 3 steps equals `fit()` (losses, grad norms,
-    params), on the trainables of the Cornell training cell."""
+    (1, 1) mesh's sharded frame compiled (a graph of the render; a
+    `[graph]` line against its eager body) and equal to `render_pixels /
+    spp` bit for bit; `fit(mesh=)` for 4 steps compiled (the graph holds
+    the render, the loss, the backward and the all-reduce of the
+    gradients) against eager, its resume and the unsharded `fit()`, bit
+    for bit (`fit_check`), on the trainables of the Cornell training
+    cell."""
     import torch.distributed as dist
 
     from tracer_torch.dist import launch, multihost, sharding
@@ -2818,39 +3092,28 @@ def dist_world1_phase(sb, spp):
         cfg = RenderConfig(nsamples=spp, width=W, height=H,
                            max_bounces=BOUNCES)
         pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+        frame = torch.no_grad()(lambda: sharding_frame(scene, cam, cfg, pid,
+                                                       spp, mesh))
+        graph_check("nccl_world1_sharded_frame", frame, frame,
+                    call_launches(scene, cfg, spp), reps=3,
+                    profile="compiled", mesh="1x1", backend="nccl")
         with torch.no_grad():
             want = renderer.render_pixels(scene, cam, cfg, W, H, pid, spp,
                                           cfg.seed) / spp
-            got, fwalls, launches = walls_of(
-                lambda: sharding.render_pixels_sharded(
-                    scene, cam, cfg, W, H, pid, spp, cfg.seed, mesh), 3)
-        if not bit_equal(got, want):
+        if not bit_equal(frame(), want):
             raise AssertionError("dist (1, 1): render differs from "
                                  "render_pixels / spp")
-        trainable = ["mat_diffuse", "sph_center", "cam_quaternion"]
-        target = train_target(scene, cam, cfg, trainable, spp)
-        s0, c0 = train_start(scene, cam, trainable,
-                             dict(mat_diffuse=0.05, sph_center=0.02,
-                                  cam_quaternion=0.002), seed=1)
-        runs = []
-        for m in (None, mesh):
-            s1, c1, hist = T.fit(s0, c0, cfg, target, trainable, steps=3,
-                                 lr=2e-3, seed=0, mesh=m)
-            runs.append((T.split_params(s1, c1, trainable), hist))
-        (pa, ha), (pb, hb) = runs
-        same = ([(h["loss"], h["grad_norm"]) for h in ha]
-                == [(h["loss"], h["grad_norm"]) for h in hb]
-                and all(bit_equal(pa[k].detach(), pb[k].detach())
-                        for k in trainable))
-        if not same:
-            raise AssertionError("dist (1, 1): fit(mesh=) differs from fit()")
+        graphs.CACHE.clear()
+        fit_train = ("mat_diffuse", "sph_center", "cam_quaternion")
+        fit_check("nccl_world1_fit_mesh", scene, cam, cfg, fit_train,
+                  dict(mat_diffuse=0.05, sph_center=0.02,
+                       cam_quaternion=0.002), 2e-3,
+                  call_launches(scene, cfg, spp, fit_train), mesh=mesh)
         say("dist_world1", backend="nccl", mesh="1x1", size=f"{W}x{H}",
             spp=spp, bounces=BOUNCES, frame_vs_render_pixels="bit-equal",
-            frame_s=spread(fwalls), launches=launches,
-            fit_vs_fit="bit-equal", losses=[f"{h['loss']:.6g}" for h in hb],
-            step_s=[f"{h['step_s']:.4f}" for h in hb])
+            fit_vs_fit="bit-equal")
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
 
 
 def dist_ranks_phase(sb, spp, n, backend, shapes, local_world_size,
@@ -2867,8 +3130,10 @@ def dist_ranks_phase(sb, spp, n, backend, shapes, local_world_size,
     `render_image_multihost` on `make_pod_mesh()` (LOCAL_WORLD_SIZE
     `local_world_size`, or unset: the card count) against `render`,
     bit-equal where its sp is 1, else within 1e-5 once the gamma is
-    undone (image ** 2.2). The kernel library is
-    built (`main`) before the ranks start."""
+    undone (image ** 2.2). Each rank's compiled frame and step against its
+    eager ones (`sharded_graphs`, a `[graph]` line a rank: NCCL ranks
+    replay graphs, gloo ranks stay eager by the rule). The kernel library
+    is built (`main`) before the ranks start."""
     from tracer_torch.dist import launch, sharding
 
     scene = compile_scene(sb, device=DEV)
@@ -2936,6 +3201,18 @@ def dist_ranks_phase(sb, spp, n, backend, shapes, local_world_size,
                 step_s=spread(x["step_walls"]),
                 step_launches=x["step_launches"],
                 step_collective_s=f"{x['step_coll_s']:.4f}")
+            c = x["compiled"]
+            say("graph", case="sharded", variant=variant,
+                mesh=f"{shape[0]}x{shape[1]}", rank=r["rank"],
+                graphed=c["graphed"], captures=c["captures"],
+                frame_vs_eager="bit-equal", steps_vs_eager="bit-equal",
+                launches_a_step=c["step_launches"],
+                host_syncs_frame=c["frame_syncs"],
+                host_syncs_step=c["step_syncs"],
+                frame_s_compiled=spread(c["frame_walls"]),
+                frame_s_eager=spread(x["frame_walls"]),
+                step_s_compiled=spread(c["step_walls"]),
+                step_s_eager=spread(c["step_walls_eager"]))
         say("dist_check", variant=variant, mesh=f"{shape[0]}x{shape[1]}",
             film_max_abs_err=f"{err:.3g}",
             step_max_abs_err=f"{step_err:.3g}",
@@ -3020,6 +3297,7 @@ def dist_phases(sb):
     readme_recipe_phase(4)
 
 
+@eager_route
 def plain_ad_phase(label, sb, spp, trainable, reps=3):
     """(e) The protocol step on the plain autodiff backward
     (custom_vjp="off": the general bounce under autograd, each bounce but
@@ -3048,13 +3326,7 @@ def plain_ad_phase(label, sb, spp, trainable, reps=3):
     if not deterministic:
         raise AssertionError(f"plain_ad {label}: two backward passes gave "
                              f"different gradients")
-    n = spp * BOUNCES
-    expect = dict(first_hits=n,
-                  row_sum=rowsum_launches(scene, trainable, spp))
-    if scene.mesh_mat.shape[0] > 0:
-        expect["traverse"] = n
-    if scene.light_pos.shape[0] > 0:
-        expect["shadow"] = n
+    expect = general_launches(scene, cfg, spp, trainable)
     if launches != expect:
         raise AssertionError(f"plain_ad {label}: launches {launches}, "
                              f"expected {expect}")
@@ -3324,8 +3596,12 @@ def main(dist_only=False, bench_only=False, graph_only=False):
         elif bench_only:
             bench_phase()
         else:
-            graph_phase(zoo.setup_cornell_box(W / H), fill_cornell_textures(
+            flat_sb = zoo.setup_cornell_box(W / H)
+            graph_phase(flat_sb, fill_cornell_textures(
                 zoo.setup_cornell_box(W / H), FULL))
+            graph_general_phase(flat_sb, rt_weekend_standin(zoo),
+                                flamingo_standin(zoo))
+            dist_world1_phase(flat_sb, SPP)
         say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3418,8 +3694,7 @@ def main(dist_only=False, bench_only=False, graph_only=False):
                  packed_atlas="off")
     rtw_train = ("mat_diffuse", "sph_center", "tex_data")
     flam_train = ("mesh_verts", "mat_diffuse", "sph_center")
-    launches["row_sum"] = general_protocol_phase(
-        "rt_weekend_standin", rtw_sb, SPP, rtw_train)["row_sum"]
+    general_protocol_phase("rt_weekend_standin", rtw_sb, SPP, rtw_train)
     profile_phase("rt_weekend_standin", rtw_sb, trainable=rtw_train)
     general_protocol_phase("flamingo_standin", flam_sb, SPP, flam_train)
     # the replay's row sums: every atomic or scattered sum left in the
@@ -3440,6 +3715,10 @@ def main(dist_only=False, bench_only=False, graph_only=False):
     graphs.CACHE.clear()
     entry_point_phases(flat_sb, pair_sb, rtw_sb)
     graph_phase(flat_sb, pair_sb)
+    # the row sums' launches: a replay of the rt_weekend_standin 16-spp
+    # general step's graph, the main path since the general step compiles
+    launches["row_sum"] = graph_general_phase(flat_sb, rtw_sb,
+                                              flam_sb)["row_sum"]
     dist_phases(flat_sb)
     plain_ad_phase("cornell", flat_sb, SPP, ("mat_diffuse", "sph_center"))
     plain_ad_phase("flamingo_standin", flam_sb, 4,
@@ -3454,7 +3733,8 @@ def main(dist_only=False, bench_only=False, graph_only=False):
     # B5 flamingo_standin bounce 1, B6 flamingo_standin bounce 0
     # reference. Launch counts: the flat box's 16-spp protocol run (B4:
     # the textured box's, the flat box has no atlas to fold onto; B5 and
-    # B6: the 16-spp flamingo_standin render)
+    # B6: the 16-spp flamingo_standin render; the row sums: a replay of
+    # the rt_weekend_standin 16-spp general step's graph)
     rows = []
     for kname, src, tpu, pick in (
             ("first_hits", "tracer_torch/kernels/csrc/first_hits.cu",

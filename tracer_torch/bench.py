@@ -133,13 +133,12 @@ def protocol_step(b: Inputs, trainable=TRAINABLE):
     radiance) with respect to the `trainable` scene fields. Its leaves are
     detached views of the scene's own tensors, made inside the body: they
     share the scene's storage, so the graph's key stays the same from call
-    to call with no copy. On the card, for the scenes of the hand-written
-    backward (`train.graph_step_ok`), one graph (`bench.py`'s
-    `jax.jit(gsum)`): forward, `loss.backward()` and the sum; elsewhere
-    the eager body, whose autograd graph `backward()` frees before the
-    function returns."""
-    from tracer_torch.train import graph_step_ok
-
+    to call with no copy. On the card (`graphs.CACHE.active`), one graph
+    on every scene (`bench.py`'s `jax.jit(gsum)`): forward,
+    `loss.backward()` (the hand-written, the general or the plain autodiff
+    backward) and the sum; on the CPU, with `kernels="off"` and inside
+    `graphs.CACHE.disabled()` the eager body, whose autograd graph
+    `backward()` frees before the function returns."""
     def body(pid):
         params = {k: getattr(b.scene, k).detach().requires_grad_(True)
                   for k in trainable}
@@ -152,7 +151,7 @@ def protocol_step(b: Inputs, trainable=TRAINABLE):
         grads = {k: p.grad for k, p in params.items()}
         return sum(g.sum() for g in grads.values()), loss.detach(), grads
 
-    if not graph_step_ok(b.scene, b.cfg, b.pixel_ids):
+    if not graphs.CACHE.active(b.pixel_ids, b.cfg):
         return body(b.pixel_ids)
     return graphs.CACHE.call(_key("bench_step", b, tuple(trainable)), body,
                              (b.pixel_ids,), keep=(b.scene, b.camera))

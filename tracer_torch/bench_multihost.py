@@ -151,8 +151,7 @@ def worker(out_path: str, label: str, device: str, backend: str):
             with open(out_path, "w") as f:
                 json.dump(res, f)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        multihost.shutdown()
 
 
 def plan(device: str) -> dict:
@@ -323,8 +322,7 @@ def real():
         if not dist.is_initialized() or dist.get_rank() == 0:
             print(json.dumps(res), flush=True)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

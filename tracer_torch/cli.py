@@ -210,6 +210,48 @@ def _compile_stats(args):
     }))
 
 
+def benchmark_rays(camera, cfg, width: int, height: int, pixel_ids):
+    """The JAX package's benchmark rays: one jittered ray a pixel, the
+    per-pixel keys not salted by a sample. Returns (o, d, tm, keys)."""
+    from tracer_torch.core import rng
+    from tracer_torch.render.camera import generate_rays
+
+    keys = rng.ray_keys(cfg.seed, pixel_ids)
+    jit_uv = rng.uniform(rng.salted(keys, rng.PIXEL_JITTER), (2,))
+    x = (pixel_ids % width).to(torch.float32)
+    y = (pixel_ids // width).to(torch.float32)
+    o, d = generate_rays(camera, (x + jit_uv[:, 0]) / width,
+                         (y + jit_uv[:, 1]) / height)
+    tm = rng.uniform(rng.salted(keys, rng.RAY_TIME))
+    return o, d, tm, keys
+
+
+def occupancy_frame(scene, cfg, o, d, tm, keys, tables):
+    """The `benchmark --occupancy` frame (the JAX CLI's jitted
+    `frame(o, d, tm, keys)`): the rays of `benchmark_rays`, traced without
+    grad by `trace(with_aux=True)` on the frame's `tables`
+    (`integrator.prepare(scene)`, built once by the caller). Returns (the
+    mean radiance, the share of lanes active at each bounce's start [B]),
+    device tensors. On the card one graph of `graphs.CACHE` (where it is
+    active), keyed by the scene's, config's and tables' signature, the
+    host constants and the rays' shapes; the rays are copied into it."""
+    from tracer_torch.render import graphs, integrator
+
+    @torch.no_grad()
+    def body(ox, oy, oz, dx, dy, dz, tm, keys):
+        rad, aux = integrator.trace(scene, cfg, (ox, oy, oz), (dx, dy, dz),
+                                    tm, keys, tables=tables, with_aux=True)
+        return rad.mean(), aux["occupancy"]
+
+    rays = (*o, *d, tm, keys)
+    if not graphs.CACHE.active(keys, cfg):
+        return body(*rays)
+    key = (("occupancy", graphs.signature((scene, cfg, tables)),
+            integrator.host_constants(scene))
+           + tuple(graphs.meta(t) for t in rays))
+    return graphs.CACHE.call(key, body, rays, keep=(scene, tables))
+
+
 def cmd_benchmark(args):
     if args.compile_stats:
         return _compile_stats(args)
@@ -218,9 +260,7 @@ def cmd_benchmark(args):
         bench.main(device=args.device)
         return
 
-    from tracer_torch.core import rng
     from tracer_torch.render import integrator
-    from tracer_torch.render.camera import generate_rays
 
     cfg = _config(args)
     scene = _build(args.scene, args.width, args.height, args.seed,
@@ -228,24 +268,15 @@ def cmd_benchmark(args):
     cam = _camera(args)
     n = args.width * args.height
     pid = torch.arange(n, dtype=torch.int32, device=args.device)
-    # the JAX package's benchmark rays: one jittered ray a pixel, the
-    # per-pixel keys not salted by a sample
-    keys = rng.ray_keys(cfg.seed, pid)
-    jit_uv = rng.uniform(rng.salted(keys, rng.PIXEL_JITTER), (2,))
-    x = (pid % args.width).to(torch.float32)
-    y = (pid // args.width).to(torch.float32)
-    o, d = generate_rays(cam, (x + jit_uv[:, 0]) / args.width,
-                         (y + jit_uv[:, 1]) / args.height)
-    tm = rng.uniform(rng.salted(keys, rng.RAY_TIME))
+    # the rays and the tables are made once, outside the timed frames
+    rays = benchmark_rays(cam, cfg, args.width, args.height, pid)
     tables = integrator.prepare(scene)
 
     def frame():
-        rad, aux = integrator.trace(scene, cfg, o, d, tm, keys,
-                                    tables=tables, with_aux=True)
-        return rad.mean(), aux["occupancy"]
+        return occupancy_frame(scene, cfg, *rays, tables)
 
     with torch.no_grad():
-        mean, occ = frame()   # warm-up (and, on the card, the build)
+        mean, occ = frame()   # on the card: the build, warm-up, capture
         _sync(args.device)
         if args.profile:
             from torch.profiler import ProfilerActivity, profile

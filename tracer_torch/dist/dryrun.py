@@ -97,7 +97,7 @@ def _env_rank(device: str) -> None:
         rank = dist.get_rank()
         res = _rank_step(device)
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
     print(f"dryrun rank {rank}: mesh={res['mesh']} device={device} "
           f"loss={res['loss']:.6f} OK")
 

@@ -30,7 +30,6 @@ def free_port() -> int:
 def _rank_main(rank, n, port, fn, args, device, backend, local_world_size,
                out):
     import torch
-    import torch.distributed as dist
 
     from tracer_torch.dist import multihost
 
@@ -43,8 +42,7 @@ def _rank_main(rank, n, port, fn, args, device, backend, local_world_size,
                              backend=backend)
         out.put((rank, fn(*args)))
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        multihost.shutdown()
 
 
 def run(fn: Callable, n: int, args: Sequence = (), device: str = "cuda",

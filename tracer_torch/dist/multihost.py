@@ -48,7 +48,10 @@ def initialize(coordinator: Optional[str] = None,
     device="cuda" and gloo for "cpu"; a CUDA rank takes card LOCAL_RANK
     (the launcher's) or process_id modulo the card count. Gloo with
     device="cuda" is the two-ranks-on-one-card case (NCCL refuses it).
-    Nothing falls back: a missing card or backend raises."""
+    Nothing falls back: a missing card or backend raises. End the group
+    with `shutdown()`, not `dist.destroy_process_group()`: a graph that
+    holds a captured NCCL collective (a compiled sharded frame or step)
+    must go before its communicator, or the teardown hangs."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR")
     if num_processes is None:
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
@@ -71,6 +74,16 @@ def initialize(coordinator: Optional[str] = None,
                               else process_id % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
+
+
+def shutdown() -> None:
+    """Destroy the process group, if one was initialized, after dropping
+    every cached graph (`graphs.CACHE.clear()`): a graph that holds a
+    captured NCCL collective goes before its communicator."""
+    from tracer_torch.render import graphs
+    graphs.CACHE.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def ranks_per_host() -> int:

@@ -19,6 +19,14 @@ multiply every parameter gradient by n_sp.
 A pixel's rank is a pure function of its position in `pixel_ids` and the
 mesh's shape, and a sample's random streams depend only on its global
 index, so a sharded render traces the same rays as an unsharded one.
+
+Compiled: on the card the sharded frame (`sharded_sum` without grad, as
+`render_image_multihost` calls it: the JAX package's
+`jax.jit(render_pixels_sharded)`) and the sharded step
+(`train.make_step(mesh=)`) are CUDA graphs (`render/graphs.py`) that hold
+the render and the NCCL collectives; a gloo mesh stays eager
+(`RayMesh.capturable`). `collective_spans` times collectives on the
+eager route only: a captured collective cannot be synchronised around.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch.distributed as dist
 
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.render.camera import Camera
-from tracer_torch.render.renderer import render_pixels
+from tracer_torch.render import graphs
+from tracer_torch.render.renderer import frame_key, render_pixels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +63,15 @@ class RayMesh:
     def rank(self) -> int:
         """This rank's index in the mesh (row-major over (dp, sp))."""
         return self.dp_rank * self.shape["sp"] + self.sp_rank
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold a route's collectives over this
+        mesh (`graphs.GraphCache.active`): no process group (no
+        collective runs), or NCCL's, which a capture records as kernels on
+        its stream. Gloo's collectives run on the host (a CUDA tensor goes
+        through host memory), so a route over a gloo mesh stays eager."""
+        return self.group is None or dist.get_backend(self.group) == "nccl"
 
 
 def make_ray_mesh(n_dp: Optional[int] = None, n_sp: int = 1) -> RayMesh:
@@ -107,10 +125,16 @@ def collective_spans():
 
 def collective(op, tensor, *args, **kwargs):
     """`op(tensor, *args, **kwargs)` (a torch.distributed collective),
-    timed into `collective_spans`' list when one is open."""
+    timed into `collective_spans`' list when one is open. A span
+    synchronises the card, which a capture refuses: time collectives on
+    the eager route (`graphs.CACHE.disabled()`)."""
     if _SPANS is None:
         return op(tensor, *args, **kwargs)
     cuda = (tensor[0] if isinstance(tensor, list) else tensor).is_cuda
+    if cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("collective_spans: a captured collective cannot "
+                           "be timed; run the route inside "
+                           "graphs.CACHE.disabled()")
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -148,21 +172,45 @@ def _check(mesh: RayMesh, n_pix: int, nsamples: int):
                          f"sp={n_sp}")
 
 
+def mesh_key(mesh: Optional[RayMesh]) -> tuple:
+    """A sharded route's part of a graph's key: the mesh's shape and this
+    rank's (dp, sp); () without a mesh."""
+    if mesh is None:
+        return ()
+    return ("mesh", mesh.shape["dp"], mesh.shape["sp"], mesh.dp_rank,
+            mesh.sp_rank)
+
+
 def sharded_sum(scene, camera: Camera, cfg: RenderConfig, width: int,
                 height: int, pixel_ids, nsamples: int, seed: int,
                 mesh: RayMesh):
     """This rank's dp block of the SUM over the `nsamples` samples
     ([N / n_dp, 3], summed over the sp group); see
-    `render_pixels_sharded`."""
+    `render_pixels_sharded`. Without grad it is the sharded frame: one
+    graph of `graphs.CACHE` where the rule holds
+    (`graphs.CACHE.active(pids, cfg, mesh)`: not over gloo), keyed by
+    `renderer.frame_key` of this rank's pixels and samples and
+    `mesh_key`; the render and the sp sum's all-reduce are replayed. With
+    grad mode on it runs eagerly (`train.make_step(mesh=)` captures the
+    whole step around it)."""
     _check(mesh, pixel_ids.shape[0], nsamples)
     nb = pixel_ids.shape[0] // mesh.shape["dp"]
     k = nsamples // mesh.shape["sp"]
+    first = mesh.sp_rank * k
     pids = pixel_ids[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
-    rad = render_pixels(scene, camera, cfg, width, height, pids, k, seed,
-                        first_sample=mesh.sp_rank * k)
-    if mesh.shape["sp"] > 1:
-        rad = _SumOverGroup.apply(rad, mesh.sp_group)
-    return rad
+
+    def body(pid):
+        rad = render_pixels(scene, camera, cfg, width, height, pid, k, seed,
+                            first_sample=first)
+        if mesh.shape["sp"] > 1:
+            rad = _SumOverGroup.apply(rad, mesh.sp_group)
+        return rad
+
+    if torch.is_grad_enabled() or not graphs.CACHE.active(pids, cfg, mesh):
+        return body(pids)
+    key = (("sharded",) + frame_key(scene, camera, cfg, width, height, pids,
+                                    k, seed, first) + mesh_key(mesh))
+    return graphs.CACHE.call(key, body, (pids,), keep=(scene, camera))
 
 
 def render_pixels_sharded(scene, camera: Camera, cfg: RenderConfig,
@@ -212,7 +260,9 @@ def train_step(scene, camera: Camera, cfg: RenderConfig, width: int,
     `fit()` runs, with the JAX package's trainables (sph_center,
     sph_radius, mat_diffuse, tex_data, mesh_verts, cam_position) and its
     stale-pack guard. Returns (loss, new_scene, new_camera); the loss is
-    the whole image's."""
+    the whole image's. Its leaves are new at every call, so a graph keyed
+    on them would never replay: the step runs eagerly (`fit(mesh=)` and
+    a kept `make_step(mesh=)` replay theirs)."""
     from tracer_torch import train as T
 
     trainable = ["sph_center", "sph_radius", "mat_diffuse", "tex_data",
@@ -221,7 +271,8 @@ def train_step(scene, camera: Camera, cfg: RenderConfig, width: int,
     params = T.split_params(scene, camera, trainable)
     opt = torch.optim.SGD([params[k] for k in sorted(params)], lr=lr)
     step_fn = T.make_step(opt, cfg, target, width, height, nsamples, mesh)
-    loss, _ = step_fn(params, scene, camera, pixel_ids, seed)
+    with graphs.CACHE.disabled():
+        loss, _ = step_fn(params, scene, camera, pixel_ids, seed)
     new_scene, new_camera = T.apply_params(
         scene, camera, {k: v.detach() for k, v in params.items()})
     return loss, new_scene, new_camera

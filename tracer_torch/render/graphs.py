@@ -1,6 +1,8 @@
 """Compiled entry points: the port's counterpart of `jax.jit` at the JAX
 package's jitted entry points (`render_pixels`, whose 16-spp frame is one
-XLA program; `fit`'s step; `bench.py`'s `jax.jit(frame)` and
+XLA program; `fit`'s step on every scene, both `custom_vjp` modes and
+`mesh=`; the CLI's `benchmark --occupancy` frame; the sharded frame of
+`render_image_multihost`; `bench.py`'s `jax.jit(frame)` and
 `jax.jit(gsum)`), as CUDA graphs.
 
 A `GraphCache` maps a key to a captured graph. The first call with a new
@@ -14,13 +16,21 @@ into the graph's static input buffers, replays the graph on the current
 stream and returns a copy of the static outputs, which the next replay
 overwrites. So an entry point replays from its second call on.
 
-- **Where.** Graphs run on the card only: the entry points take a graph
-  for CUDA tensors with `kernels` on ("auto" or "on"); on CPU tensors,
-  with `kernels="off"` (the plain versions, the reference on the card) and
-  inside `disabled()` they run their eager body, as `jax.disable_jit`
-  does. A route is graphed or not by a written rule that reads the scene
-  and the config (`renderer.render_frame`, `train.graph_step_ok`,
-  `bench.protocol_step`), never by a caught capture failure.
+- **Where.** Graphs run on the card only. One written rule,
+  `GraphCache.active(t, cfg, mesh)`, decides for every route
+  (`renderer.render_frame`, `train.make_step`, `bench`,
+  `cli.occupancy_frame`, `dist.sharding.sharded_sum`): a route takes a
+  graph for CUDA tensors with `kernels` on ("auto" or "on") outside
+  `disabled()`, on every scene (the hand-written and the general
+  backward, the plain autodiff route), except a route over a mesh whose
+  collectives a capture cannot hold (`RayMesh.capturable`: gloo's run on
+  the host). On CPU tensors, with `kernels="off"` (the plain versions,
+  the reference on the card), over a gloo mesh and inside `disabled()` a
+  route runs its eager body, as `jax.disable_jit` does; never because a
+  capture failed. On a mesh the warm-up runs the collectives first, so
+  NCCL's communicator exists before a captured collective.
+  (`dist.sharding.train_step`, a one-shot step on new leaves at every
+  call, runs eagerly: a graph keyed on them would never replay.)
 - **The key.** The entry point's name, its static arguments (the config,
   width, height, samples, first sample: what JAX marks static), and the
   `signature` of every tensor the body reads: shape, dtype, strides,
@@ -48,7 +58,7 @@ overwrites. So an entry point replays from its second call on.
 - **Size.** At most `max_graphs` graphs (8 by default), least recently
   used first out; an evicted graph's pool goes back to the card. A
   16-spp protocol step's pool holds about what the step's peak does
-  (3.8-4.0 GB on 850x480, PERF.md section 5), a frame's about a tenth.
+  (3.8-4.4 GB on 850x480, PERF.md section 5), a frame's about a tenth.
 """
 
 from __future__ import annotations
@@ -206,10 +216,16 @@ class GraphCache:
     def graphs(self):
         return list(self._graphs.values())
 
-    def active(self, t: torch.Tensor, cfg) -> bool:
-        """Whether an entry point on `t`'s device with config `cfg` takes a
-        graph: a CUDA tensor, the kernels on, graphs not disabled."""
-        return self.enabled and t.is_cuda and cfg.kernels != "off"
+    def active(self, t: torch.Tensor, cfg, mesh=None) -> bool:
+        """The rule (module docstring): whether an entry point on `t`'s
+        device with config `cfg`, over `mesh` (`dist.sharding.RayMesh`;
+        None unsharded), takes a graph: graphs not disabled, a tensor on
+        the card, the kernels on, and the mesh's collectives capturable."""
+        return (self.enabled and self.on_card(t) and cfg.kernels != "off"
+                and (mesh is None or mesh.capturable))
+
+    def on_card(self, t: torch.Tensor) -> bool:
+        return t.is_cuda
 
     @contextlib.contextmanager
     def disabled(self):

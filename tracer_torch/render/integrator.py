@@ -633,8 +633,9 @@ def _bounce_general(scene, cfg: RenderConfig, keys, state, b: int,
     only the discrete selections, kept in `picks` (`_Picks`), the hit is
     re-derived from the scene's tensors (no B1 float output reaches it)
     and the atlases are read exactly (no packed twin). `sky_wh`: the image
-    sky's (W, H) as host ints (`_sky_wh`; the forward takes them from
-    `tables`). Returns (next state, a new dict; record or None)."""
+    sky's (W, H) as host ints (the replay's, from the forward's
+    `tables.sky`; the forward takes them from `tables`). Returns (next
+    state, a new dict; record or None)."""
     eps = cfg.epsilon
     ref = cfg.compat == "reference"
     L = scene.light_pos.shape[0]
@@ -773,14 +774,16 @@ def _plain_state(o, d, time):
                 acc=(zero, zero, zero))
 
 
-def _trace_replay(scene, cfg: RenderConfig, o, d, time, keys, rec):
+def _trace_replay(scene, cfg: RenderConfig, o, d, time, keys, rec,
+                  sky_wh):
     """The differentiable replay conditioned on the record
     (`tracer/render/integrator.py::_trace_replay`): every bounce by
     `_bounce_general(saved=rec[b])`, in torch ops. Its vector-Jacobian
-    product is the general backward."""
+    product is the general backward. `sky_wh`: the image sky's (W, H) as
+    the forward's `prepare` read them (`FrameTables.sky`), so that the
+    replay reads nothing from the card."""
     B = cfg.max_bounces
     state = _plain_state(o, d, time)
-    sky_wh = _sky_wh(scene)
     for b in range(B):
         state, _ = _bounce_general(scene, cfg, keys, state, b, saved=rec[b],
                                    last=b == B - 1, sky_wh=sky_wh)
@@ -806,21 +809,28 @@ def _trace_scan(scene, cfg: RenderConfig, o, d, time, keys, tables,
                                    last=b == B - 1, tables=tables,
                                    picks=_Picks())
         if b < B - 1:
+            # no draw comes from torch's generator (every draw is a PCG
+            # stream of the explicit keys), so its state need not be kept;
+            # keeping it queries the CUDA generator, which a capture refuses
             state, _ = torch.utils.checkpoint.checkpoint(
-                bounce, state, use_reentrant=False)
+                bounce, state, use_reentrant=False, preserve_rng_state=False)
         else:
             state, _ = bounce(state)
     return _finish(state, cfg)
 
 
-def _general_backward(scene, cfg, keys, rec, o, d, time, g, needs):
+def _general_backward(scene, cfg, keys, rec, o, d, time, g, needs,
+                      sky_wh):
     """The vjp of the replay (`tracer/render/integrator.py::_trace_cv_bwd`
     outside the hand-written class): the replay runs again under autograd
     on detached leaves (the scene fields and rays whose gradient is asked
     for, and each bounce's recorded texel values), and
-    `torch.autograd.grad` gives their cotangents. Returns (gscene dict,
-    go, gd, gtime, gtex) with gtex the per-bounce texel cotangents [8, N]
-    (None where not asked for)."""
+    `torch.autograd.grad` gives their cotangents. `sky_wh`: the forward's
+    (`_TraceRecordReplay`'s ctx). The replay's scene `s2` holds detached
+    copies, which `host_constants` has never seen: nothing here calls it
+    or `prepare`, so the backward reads nothing from the card and can be
+    captured. Returns (gscene dict, go, gd, gtime, gtex) with gtex the
+    per-bounce texel cotangents [8, N] (None where not asked for)."""
     nf = len(replay_bwd.GRAD_FIELDS)
     leaves, repl = {}, {}
     for name, need in zip(replay_bwd.GRAD_FIELDS, needs[:nf]):
@@ -840,7 +850,7 @@ def _general_backward(scene, cfg, keys, rec, o, d, time, g, needs):
               + (texvals if want_tex else []))
     with torch.enable_grad():
         out = _trace_replay(s2, cfg, tuple(rays[0:3]), tuple(rays[3:6]),
-                            rays[6], keys, rec2)
+                            rays[6], keys, rec2, sky_wh)
         grads = (torch.autograd.grad(out, inputs, g, allow_unused=True)
                  if inputs else [])
     grads = [torch.zeros_like(x) if gx is None else gx
@@ -879,10 +889,11 @@ class _TraceRecordReplay(torch.autograd.Function):
         o, d, time = inputs[nf:nf + 3], inputs[nf + 3:nf + 6], inputs[-1]
         out, rec, states = _trace_loop(scene, cfg, o, d, time, keys,
                                        tables, with_rec=True)
-        # dark_sky as the host float `prepare` read: the sweep reads no
-        # scalar from the card
+        # dark_sky and the sky's (W, H) as the host values `prepare`
+        # read: neither backward reads a scalar from the card
         ctx.scene, ctx.cfg, ctx.keys, ctx.dark = scene, cfg, keys, \
             tables.shade[2]
+        ctx.sky_wh = tables.sky
         ctx.rec, ctx.states, ctx.time = rec, states, time
         ctx.o, ctx.d = o, d
         return out
@@ -900,7 +911,7 @@ class _TraceRecordReplay(torch.autograd.Function):
         else:
             gscene, go, gd, gtime, gtex = _general_backward(
                 scene, cfg, ctx.keys, rec, ctx.o, ctx.d, ctx.time,
-                g.contiguous(), needs)
+                g.contiguous(), needs, ctx.sky_wh)
         # the last bounce fetches texels only where something consumes
         # them there (`_bounce_core` fetch_tex)
         n_fold = len(rec) - 1

@@ -178,42 +178,34 @@ def _load_ckpt(path: str, params: Dict, opt) -> int:
     return step
 
 
-def graph_step_ok(scene, cfg: RenderConfig, pixel_ids, mesh=None,
-                  cache=None) -> bool:
-    """The rule for a graphed training step (`make_step`): the graph cache
-    is active (CUDA tensors, the kernels on), the step is not sharded, the
-    gradient is the record-replay one (`custom_vjp="on"`) and the scene is
-    in the hand-written backward's class (`replay_bwd.hand_bwd_ok`: the
-    Cornell family, textured too). The general backward (about 149,000
-    launches a 16-spp step), the plain autodiff route and the sharded step
-    (`mesh`: collectives between the backward and the update) run
-    eagerly."""
-    from tracer_torch.render import graphs, replay_bwd
-    cache = graphs.CACHE if cache is None else cache
-    return (mesh is None and cfg.custom_vjp == "on"
-            and cache.active(pixel_ids, cfg)
-            and replay_bwd.hand_bwd_ok(scene, cfg))
-
-
 def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
               nsamples: int, mesh=None, cache=None):
     """The optimization step of `fit`: L2 image loss, its gradients by
     `loss.backward()`, one update of `opt` (which holds the params).
-
-    Where `graph_step_ok` holds, the step's body (`apply_params`, the
-    render, the loss, `loss.backward()` and the grad norm) is one graph of
-    `cache` (default `graphs.CACHE`, the counterpart of the JAX package's
-    jitted step), captured at the first call and replayed from the second:
-    the gradients land in the graph's static buffers and each leaf's
-    `.grad` is set to a copy of its own. The update stays eager:
-    `opt.step()` after the replay, so the parameters, the Adam state and
-    the checkpoints are those of the eager step, bit for bit.
 
     With `mesh` (`dist.sharding.make_ray_mesh`) the render is sharded:
     each rank's loss is its dp block's share of the mean over all N * 3
     values (the block's mean over n_dp), the parameter gradients are
     all-reduced over the whole mesh after `backward()` (JAX's autodiff
     psums) and the loss over dp, so every rank takes the same update.
+
+    Where the graph rule holds (`cache.active(pixel_ids, cfg, mesh)`: CUDA
+    tensors, the kernels on, outside `disabled()`, not over a gloo mesh;
+    every scene, the hand-written, the general and the plain autodiff
+    backward), the step's body (`apply_params`, the render, the loss,
+    `loss.backward()`, on a mesh the collectives, and the grad norm) is
+    one graph of `cache` (default `graphs.CACHE`, the counterpart of the
+    JAX package's jitted step), captured at the first call and replayed
+    from the second. Its key: the leaves' and target's
+    signature, `renderer.frame_key`'s (scene, camera, config, sizes,
+    samples, seed, host constants, the pixel ids' shape) and on a mesh its
+    shape and this rank's (dp, sp). The first call's warm-up runs the
+    collectives before the capture, so NCCL's communicator exists before
+    a captured collective. The gradients land in the graph's static
+    buffers and each leaf's `.grad` is set to a copy of its own. The
+    update stays eager: `opt.step()` after the replay, so the parameters,
+    the Adam state and the checkpoints are those of the eager step, bit
+    for bit.
 
     Returns step_fn(params, scene, camera, pixel_ids, seed) ->
     (loss, grad_norm), both 0-d tensors on the scene's device; grad_norm
@@ -232,14 +224,26 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
         for p in leaves:
             p.grad = None
         with torch.enable_grad():
-            img = render_pixels(s, c, cfg, width, height, pixel_ids,
-                                nsamples, seed) / nsamples
-            loss = torch.mean((img - tgt) ** 2)
+            if mesh is None:
+                img = render_pixels(s, c, cfg, width, height, pixel_ids,
+                                    nsamples, seed) / nsamples
+                loss = torch.mean((img - tgt) ** 2)
+            else:
+                img = sharding.render_pixels_sharded(
+                    s, c, cfg, width, height, pixel_ids, nsamples, seed,
+                    mesh)
+                nb = img.shape[0]
+                blk = tgt[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
+                loss = torch.mean((img - blk) ** 2) / mesh.shape["dp"]
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            sharding.all_reduce_grads(mesh, leaves)
+            loss = sharding.sum_over_dp(mesh, loss)
         gnorm = torch.sqrt(torch.stack([
             torch.sum(p.grad * p.grad) if p.grad is not None
             else p.new_zeros(()) for p in leaves]).sum())
-        return loss.detach(), gnorm, [p.grad for p in leaves]
+        return loss, gnorm, [p.grad for p in leaves]
 
     def step_fn(params, scene, camera, pixel_ids, seed):
         nonlocal target
@@ -247,21 +251,11 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
         leaves = [params[k] for k in sorted(params)]
         opt.zero_grad(set_to_none=True)
         s, c = apply_params(scene, camera, params)
-        if mesh is not None:
-            img = sharding.render_pixels_sharded(
-                s, c, cfg, width, height, pixel_ids, nsamples, seed, mesh)
-            nb = img.shape[0]
-            tgt = tgt[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
-            loss = torch.mean((img - tgt) ** 2) / mesh.shape["dp"]
-            loss.backward()
-            sharding.all_reduce_grads(mesh, leaves)
-            loss = sharding.sum_over_dp(mesh, loss.detach())
-            gnorm = torch.sqrt(torch.stack([
-                torch.sum(p.grad * p.grad) if p.grad is not None
-                else p.new_zeros(()) for p in leaves]).sum())
-        elif graph_step_ok(s, cfg, pixel_ids, mesh, cache):
-            key = ("step", graphs.signature((leaves, tgt))) + frame_key(
-                s, c, cfg, width, height, pixel_ids, nsamples, seed)
+        if cache.active(pixel_ids, cfg, mesh):
+            key = (("step", graphs.signature((leaves, tgt)))
+                   + frame_key(s, c, cfg, width, height, pixel_ids,
+                               nsamples, seed)
+                   + sharding.mesh_key(mesh))
             loss, gnorm, grads = cache.call(
                 key, lambda pid: body(s, c, leaves, tgt, pid, seed),
                 (pixel_ids,), keep=(s, c, leaves, tgt))

@@ -98,7 +98,14 @@ random_spheres at 4 spp, 4 `fit` steps on Cornell and their resume, the
 launches of a replay, the host syncs of a compiled and an eager call,
 walls in turns, the device's idle share under the profiler, each graph's
 capture seconds and pool; and a body that reads the card, whose capture
-must raise. Then the compiled routes beyond the Cornell family
+must raise. Then the keys by shape (`graph_keys_phase`): a camera path of
+8 cameras around the Cornell box at 16 spp on one capture, the seed,
+first-sample and spp sweeps on that graph with none, the sample graph's
+kernels, capture and pool, and the textured training step on new leaves
+and a second `compile_scene` of the same builder (one capture; 8 more
+calls on new leaves, none) with the cost of copying its leaves in, each
+frame and step bit-equal to its eager body with the formula's launches.
+Then the compiled routes beyond the Cornell family
 (`graph_general_phase`): the general 16-spp protocol step on
 rt_weekend_standin and flamingo_standin, the plain autodiff step
 (custom_vjp="off") on Cornell at 16 spp and flamingo_standin at 4 spp, 4
@@ -204,7 +211,8 @@ from tracer_torch.kernels import shadow as kshadow  # noqa: E402
 from tracer_torch.kernels import traverse as ktraverse  # noqa: E402
 from tracer_torch.render import graphs, integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
-from tracer_torch.render.camera import default_camera  # noqa: E402
+from tracer_torch.render.camera import (  # noqa: E402
+    default_camera, look_at_quaternion)
 from tracer_torch.render.film import TileManifest  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
@@ -1985,6 +1993,10 @@ def cli_phase():
         ("scenes", ["scenes"]),
     ]
     for name, argv in runs:
+        if name == "compile":
+            # the frame's graph of these shapes is cached by `render`: the
+            # compile split is a first call's, in a cache without it
+            graphs.CACHE.clear()
         buf = io.StringIO()
         reset_launches()
         t0 = time.perf_counter()
@@ -2471,10 +2483,11 @@ def all_bit_equal(a, b):
 
 
 def graph_check(label, compiled, eager, want_launches=None, reps=0,
-                profile=False, **extra):
+                profile=False, captures=1, **extra):
     """One compiled entry point against its eager body in the same call:
-    the first call (the warm-up's result, then the capture), a replay and
-    the eager body, all bit-equal; the launches of the replay and of the
+    the first call (the warm-up's result, then the capture; with
+    `captures=0` a replay of a graph of the same shapes already cached),
+    a replay and the eager body, all bit-equal; the launches of the replay and of the
     eager call (the counts reset just before each and read just after),
     which must be equal (and `want_launches`, where given), the kernels
     of the path having run; the host synchronisations of that replay and
@@ -2482,8 +2495,9 @@ def graph_check(label, compiled, eager, want_launches=None, reps=0,
     spread, after those calls); with `profile` ("both", or "compiled"
     where the eager step's profile is another line's), the device busy
     time and idle share. Each line also gives the graph's warm-up,
-    capture and instantiate seconds, its pool and the peak memory
-    allocated over the first call, the replay and the eager call.
+    capture and instantiate seconds, its pool, the peak memory allocated
+    over the first call, the replay and the eager call, and the graph's
+    runs in the replayed call (a frame's: one a sample).
     Returns (host syncs of the replay, of the eager call, the replay's
     launches)."""
     cache = graphs.CACHE
@@ -2491,10 +2505,12 @@ def graph_check(label, compiled, eager, want_launches=None, reps=0,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first = compiled()
-    g = cache.last
-    if cache.captures != n0 + 1:
+    g = cache.graphs()[-1]   # the graph last captured or replayed
+    if cache.captures != n0 + captures:
         raise AssertionError(f"graph {label}: {cache.captures - n0} "
-                             f"captures at the first call")
+                             f"captures at the first call, {captures} "
+                             f"expected")
+    replays0, runs0 = g.replays, g.runs
     out = {}
 
     def run(name, fn):
@@ -2505,9 +2521,10 @@ def graph_check(label, compiled, eager, want_launches=None, reps=0,
         return launched(*KERNEL_MODULES), syncs, where
 
     launches, syncs, where = run("replay", compiled)
-    if g.replays != 1 or cache.captures != n0 + 1:
+    if g.replays != replays0 + 1 or cache.captures != n0 + captures:
         raise AssertionError(f"graph {label}: the second call did not "
                              f"replay the graph")
+    runs = g.runs - runs0
     with cache.disabled():
         eager_launches, syncs_eager, where_eager = run("eager", eager)
     if not launches or launches != eager_launches or (
@@ -2521,7 +2538,8 @@ def graph_check(label, compiled, eager, want_launches=None, reps=0,
     if syncs:
         raise AssertionError(f"graph {label}: {syncs} host syncs in a "
                              f"replay: {where}")
-    kv = dict(extra, vs_eager="bit-equal", launches_a_replay=launches,
+    kv = dict(extra, vs_eager="bit-equal", captures=captures,
+              graph_runs_a_call=runs, launches_a_replay=launches,
               launches_eager="equal", host_syncs=syncs,
               host_syncs_eager=syncs_eager, sync_at_eager=where_eager,
               warmup_s=f"{g.times['warmup_s']:.3f}",
@@ -2626,20 +2644,26 @@ def fit_check(label, scene, cam, cfg, trainable, offsets, lr, want,
     def call():
         return step(params, s0, c0, pid, cfg.seed)
 
+    # new leaves of the same shapes: the compiled run's graph replays
+    n0 = cache.captures
     call()
+    g = cache.graphs()[-1]   # the graph the kept step replayed
+    replays0 = g.replays
     call()
-    g = cache.last
     syncs, where = host_syncs(call)
-    if syncs or g.replays < 2:
+    if syncs or g.replays != replays0 + 2 or cache.captures != n0:
         raise AssertionError(f"graph {label}: {syncs} host syncs in a "
-                             f"replayed step ({where}), {g.replays} "
-                             f"replays")
+                             f"replayed step ({where}), "
+                             f"{g.replays - replays0} replays of 2, "
+                             f"{cache.captures - n0} captures for new "
+                             f"leaves of the same shapes")
     wall, busy, idle, n, _ = profiled(call)
     med = walls["compiled"][len(walls["compiled"]) // 2] * 1e3
     say("graph", case=label, steps=steps, spp=cfg.nsamples,
         trainable="+".join(trainable),
         mesh=dict(mesh.shape) if mesh is not None else None,
         vs_eager="bit-equal", resume="bit-equal",
+        kept_step_new_leaves="replayed, 0 captures",
         **({"vs_unsharded": "bit-equal"} if mesh is not None else {}),
         launches_a_step={k: v // steps for k, v in na.items() if v},
         step_s_eager=spread(walls["eager"]),
@@ -2701,8 +2725,9 @@ def graph_phase(flat_sb, pair_sb, reps=3):
                                 frame(flat, SPP), want, reps, profile=True)
     add(want)
     bf = bench.Inputs(flat, cam, cfg, W, H, pid, SPP)
+    # the bench's frame is the frame's graph, already captured above
     graph_check("bench_frame_scalar", lambda: bench.frame_scalar(bf),
-                lambda: bench.frame_scalar(bf), want)
+                lambda: bench.frame_scalar(bf), want, captures=0)
     add(want)
     for label, scene in (("cornell", flat), ("cornell_textured", pair)):
         b = bench.Inputs(scene, cam, cfg, W, H, pid, SPP)
@@ -2779,8 +2804,9 @@ def graph_phase(flat_sb, pair_sb, reps=3):
         wall_s_eager=spread(walls["eager"]),
         wall_s_compiled=spread(walls["compiled"]))
     for g in cache.graphs():
-        say("graph", pool=g.key[0], pixels=g.key[-1][1][0],
-            replays=g.replays, warmup_s=f"{g.times['warmup_s']:.3f}",
+        say("graph", pool=g.key[0], pixels=g.carry[0].shape[0],
+            replays=g.replays, runs=g.runs,
+            warmup_s=f"{g.times['warmup_s']:.3f}",
             capture_s=f"{g.times['capture_s']:.3f}",
             instantiate_s=f"{g.times['instantiate_s']:.3f}",
             pool_gb=f"{g.pool_bytes / 1e9:.3f}")
@@ -2796,7 +2822,7 @@ def graph_phase(flat_sb, pair_sb, reps=3):
     reset_launches()
     err = None
     try:
-        cache.call(("must_fail",), reads, (pid,), keep=(flat, cam))
+        cache.call(("must_fail",), reads, (pid,))
     except RuntimeError as e:
         err = str(e).strip().splitlines()[0]
     torch.cuda.synchronize()
@@ -2813,6 +2839,228 @@ def graph_phase(flat_sb, pair_sb, reps=3):
         raise AssertionError("graph: frames after the failed capture differ")
     say("graph", case="capture_must_fail", raised=f'"{err}"', cached=False,
         launches_warmup_only=one)
+    cache.clear()
+
+
+def orbit_camera(k, n):
+    """Camera k of a path of n around the Cornell box: an arc of 40
+    degrees at the default camera's distance (6.1), rising 0.1 a camera,
+    each looking at the box's centre."""
+    a = np.radians(-20.0 + 40.0 * k / max(n - 1, 1))
+    pos = (6.1 * np.sin(a), 0.1 * k - 0.35, 6.1 * np.cos(a))
+    return dataclasses.replace(
+        default_camera(W / H, device=DEV),
+        position=torch.tensor(pos, dtype=torch.float32, device=DEV),
+        quaternion=look_at_quaternion(pos, (0.0, 0.0, 0.0), device=DEV))
+
+
+class KeepLeaves:
+    """An optimizer that updates nothing: `train.make_step`'s body alone."""
+
+    def zero_grad(self, set_to_none=True):
+        pass
+
+    def step(self):
+        pass
+
+
+def frame_calls(label, scene, cfg, calls, pid):
+    """Compiled frames against their eager bodies in the same call:
+    `calls` is a list of (camera, seed, first sample, spp); each compiled
+    call (`renderer.render_frame`, synced wall, launches) is followed by
+    its eager body (inside `graphs.CACHE.disabled()`), bit-equal with the
+    same launches, which must be the formula's (`call_launches`). Returns
+    (compiled walls, eager walls, captures over the compiled calls)."""
+    cache = graphs.CACHE
+    walls = {"compiled": [], "eager": []}
+    captures = 0
+    for cam, seed, first, spp in calls:
+        outs, counts = [], []
+        for route in ("compiled", "eager"):
+            with contextlib.ExitStack() as st:
+                if route == "eager":
+                    st.enter_context(cache.disabled())
+                n0 = cache.captures
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(renderer.render_frame(scene, cam, cfg, W, H, pid,
+                                                  spp, seed, first))
+                torch.cuda.synchronize()
+                walls[route].append(time.perf_counter() - t0)
+                counts.append(launched(*KERNEL_MODULES))
+                captures += cache.captures - n0
+        want = call_launches(scene, cfg, spp)
+        if not bit_equal(*outs) or counts != [want, want]:
+            raise AssertionError(
+                f"graph {label}: seed {seed}, first sample {first}, spp "
+                f"{spp}: compiled differs from eager, or launches {counts} "
+                f"against {want}")
+    return walls["compiled"], walls["eager"], captures
+
+
+def graph_keys_phase(flat_sb, pair_sb, reps=6):
+    """The compiled entry points keyed as `jax.jit` keys them, at 850x480,
+    6 bounces (`[graph]` lines): the arguments by shape, the seed a device
+    scalar, the frame one graph of one sample replayed once a sample.
+    Each frame is held bit-equal to its eager body with the formula's
+    launches (`frame_calls`). A camera path of 8 cameras around the
+    Cornell box at 16 spp takes 1 capture (frames 2-8 replay); then, on
+    that graph with 0 captures, seeds 0-2, first samples 0 and 16, spp 1,
+    4, 16 and 64; the sample graph's kernels (the profiler's device
+    launches of a 16-spp and a 1-spp frame: 15 samples apart), capture,
+    instantiation and pool. Then the textured Cornell 16-spp training
+    step (tex_data, mat_diffuse; the exact atlas, B3, B4): 2 Adam steps,
+    then new leaves on a second `compile_scene` of the same builder with
+    a new camera and seed, compiled (1 capture) against eager (losses,
+    grad norms and gradients bit-equal, the formula's launches a step);
+    8 more calls on new leaves take 0 captures, and the pools then held;
+    and the copy-in of the leaves (tex_data's 25 MB, copied at every step
+    because Adam writes it in place): the step's wall with the leaves
+    written since the last call (copied in) and without (not copied), in
+    turns, and the copy alone on CUDA events."""
+    t_phase = time.perf_counter()
+    cache = graphs.CACHE
+    cache.clear()
+    flat = compile_scene(flat_sb, device=DEV)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    cfg = RenderConfig(nsamples=SPP, width=W, height=H, max_bounces=BOUNCES)
+    cams = [orbit_camera(k, 8) for k in range(8)]
+
+    walls, ewalls, captures = frame_calls(
+        "camera_path", flat, cfg, [(c, cfg.seed, 0, SPP) for c in cams], pid)
+    (g,) = cache.graphs()
+    if captures != 1 or g.runs != 8 * SPP - 1:
+        raise AssertionError(f"graph camera_path: {captures} captures, "
+                             f"{g.runs} runs of the sample graph")
+    say("graph", case="camera_path", cameras=8, spp=SPP, captures=captures,
+        vs_eager="bit-equal", launches_a_frame=call_launches(flat, cfg, SPP),
+        first_frame_s=f"{walls[0]:.4f}",
+        warmup_s=f"{g.times['warmup_s']:.3f}",
+        capture_s=f"{g.times['capture_s']:.3f}",
+        instantiate_s=f"{g.times['instantiate_s']:.3f}",
+        wall_s_frames_2_8=spread(sorted(walls[1:])),
+        wall_s_eager=spread(sorted(ewalls)),
+        pool_gb=f"{g.pool_bytes / 1e9:.3f}")
+    for label, calls in (
+            ("seed_sweep", [(cams[0], sd, 0, SPP) for sd in (0, 1, 2)]),
+            ("first_sample_sweep", [(cams[0], cfg.seed, f, SPP)
+                                    for f in (0, 16)]),
+            ("spp_sweep", [(cams[0], cfg.seed, 0, n)
+                           for n in (1, 4, 16, 64)])):
+        walls, ewalls, captures = frame_calls(label, flat, cfg, calls, pid)
+        if captures or len(cache) != 1:
+            raise AssertionError(f"graph {label}: {captures} captures, "
+                                 f"{len(cache)} graphs")
+        say("graph", case=label, seed_first_spp=[c[1:] for c in calls],
+            captures=0, vs_eager="bit-equal",
+            wall_s=[f"{w:.4f}" for w in walls],
+            wall_s_eager=[f"{w:.4f}" for w in ewalls])
+    n = {}
+    for spp in (1, SPP):
+        n[spp] = profiled(lambda spp=spp: renderer.render_frame(
+            flat, cams[0], cfg, W, H, pid, spp, cfg.seed))
+    per_sample = (n[SPP][3] - n[1][3]) / (SPP - 1)
+    say("graph", case="sample_body", device_launches_a_frame=n[SPP][3],
+        device_launches_1spp=n[1][3], kernels_a_sample=f"{per_sample:.1f}",
+        outside_the_samples=f"{n[1][3] - per_sample:.1f}",
+        profile_16spp=dict(wall_ms=f"{n[SPP][0]:.1f}",
+                           device_busy_ms=f"{n[SPP][1]:.1f}",
+                           idle_share=f"{n[SPP][2]:.3f}"),
+        capture_s=f"{g.times['capture_s']:.3f}",
+        instantiate_s=f"{g.times['instantiate_s']:.3f}",
+        pool_gb=f"{g.pool_bytes / 1e9:.3f}", runs=g.runs, replays=g.replays)
+    cache.clear()
+
+    # the textured training step on new leaves and a scene compiled again
+    trainable = ("tex_data", "mat_diffuse")
+    tcfg = T.guard_config(cfg, trainable)
+    pair_a = compile_scene(pair_sb, device=DEV)
+    pair_b = compile_scene(pair_sb, device=DEV)   # the same builder again
+    target = torch.zeros((W * H, 3), dtype=torch.float32, device=DEV)
+    want = call_launches(pair_a, tcfg, SPP, trainable)
+    runs = {}
+    for route in ("compiled", "eager"):
+        with contextlib.ExitStack() as st:
+            if route == "eager":
+                st.enter_context(cache.disabled())
+            n0 = cache.captures
+            out, counts, swalls = [], [], []
+            for scene, cam, seeds in ((pair_a, cams[0], (0, 1)),
+                                      (pair_b, cams[1], (5,))):
+                params = T.split_params(scene, cam, trainable)
+                leaves = [params[k] for k in sorted(params)]
+                step = T.make_step(T._adam_default(1e-2)(leaves), tcfg,
+                                   target, W, H, SPP)
+                for seed in seeds:
+                    reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss, gnorm = step(params, scene, cam, pid, seed)
+                    torch.cuda.synchronize()
+                    swalls.append(time.perf_counter() - t0)
+                    counts.append(launched(*KERNEL_MODULES))
+                    out.append([loss, gnorm] + [p.grad.clone()
+                                                for p in leaves])
+            runs[route] = (out, counts, swalls, cache.captures - n0)
+    (oc, cc, wc, capc), (oe, ce, we, cape) = runs["compiled"], runs["eager"]
+    if (capc, cape) != (1, 0) or any(c != want for c in cc + ce) or not all(
+            all(bit_equal(x, y) for x, y in zip(a, b))
+            for a, b in zip(oc, oe)):
+        raise AssertionError(f"graph same_shape_step: captures {capc} / "
+                             f"{cape}, launches {cc} / {ce} against {want}, "
+                             f"or compiled differs from eager")
+    (g,) = cache.graphs()
+    n0 = cache.captures
+    for i in range(8):   # 8 more calls, each on new leaves
+        scene = (pair_a, pair_b)[i % 2]
+        params = T.split_params(scene, cams[i], trainable)
+        T.make_step(KeepLeaves(), tcfg, target, W, H, SPP)(
+            params, scene, cams[i], pid, i)
+    torch.cuda.synchronize()
+    if cache.captures != n0 or len(cache) != 1:
+        raise AssertionError(f"graph same_shape_step: {cache.captures - n0} "
+                             f"captures in 8 calls on new leaves")
+    held = sum(x.pool_bytes for x in cache.graphs())
+    # the copy-in: leaves written since the last call are copied, others
+    # not; the step's wall either way, in turns
+    params = T.split_params(pair_a, cams[0], trainable)
+    step = T.make_step(KeepLeaves(), tcfg, target, W, H, SPP)
+
+    def no_copy():
+        step(params, pair_a, cams[0], pid, 0)
+
+    def copy_in():
+        with torch.no_grad():   # written in place, as Adam writes them
+            for p in params.values():
+                p.add_(0.0)
+        step(params, pair_a, cams[0], pid, 0)
+
+    no_copy()
+    turns = in_turns(dict(copy_in=copy_in, no_copy=no_copy), reps)
+    bufs = [torch.empty_like(p) for p in params.values()]
+    copy_ms = timed(lambda: [b.copy_(p.detach()) for b, p in
+                             zip(bufs, params.values())], 20)
+    nbytes_leaves = sum(p.numel() * p.element_size()
+                        for p in params.values())
+    say("graph", case="same_shape_step", scene="cornell_textured",
+        trainable="+".join(trainable), spp=SPP,
+        calls="2 Adam steps, new leaves on a second compile_scene with a "
+              "new camera and seed",
+        captures=capc, vs_eager="bit-equal", launches_a_step=want,
+        step_s_compiled=[f"{w:.4f}" for w in wc],
+        step_s_eager=[f"{w:.4f}" for w in we],
+        capture_s=f"{g.times['capture_s']:.3f}",
+        instantiate_s=f"{g.times['instantiate_s']:.3f}",
+        new_leaves_calls=8, captures_after=cache.captures - n0,
+        graphs_held=len(cache), pools_held_gb=f"{held / 1e9:.3f}",
+        parent_rule_pools_gb=f"{8 * g.pool_bytes / 1e9:.3f}",
+        reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.3f}",
+        wall_s_copy_in=spread(turns["copy_in"]),
+        wall_s_no_copy=spread(turns["no_copy"]),
+        leaves_mb=f"{nbytes_leaves / 1e6:.1f}", copy_ms=f"{copy_ms:.4f}",
+        copy_bound_ms=f"{bound_ms(2 * nbytes_leaves):.4f}",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
     cache.clear()
 
 
@@ -3597,8 +3845,10 @@ def main(dist_only=False, bench_only=False, graph_only=False):
             bench_phase()
         else:
             flat_sb = zoo.setup_cornell_box(W / H)
-            graph_phase(flat_sb, fill_cornell_textures(
-                zoo.setup_cornell_box(W / H), FULL))
+            pair_sb = fill_cornell_textures(zoo.setup_cornell_box(W / H),
+                                            FULL)
+            graph_phase(flat_sb, pair_sb)
+            graph_keys_phase(flat_sb, pair_sb)
             graph_general_phase(flat_sb, rt_weekend_standin(zoo),
                                 flamingo_standin(zoo))
             dist_world1_phase(flat_sb, SPP)
@@ -3715,6 +3965,7 @@ def main(dist_only=False, bench_only=False, graph_only=False):
     graphs.CACHE.clear()
     entry_point_phases(flat_sb, pair_sb, rtw_sb)
     graph_phase(flat_sb, pair_sb)
+    graph_keys_phase(flat_sb, pair_sb)
     # the row sums' launches: a replay of the rt_weekend_standin 16-spp
     # general step's graph, the main path since the general step compiles
     launches["row_sum"] = graph_general_phase(flat_sb, rtw_sb,

@@ -11,9 +11,10 @@ cache does around it:
   `__int__`, `__index__`, `__bool__`, `tolist`, `numpy` and `cpu` patched
   to raise, after the host constants were read (as the entry points read
   them before a capture): any read left in a body fails here.
-- **The key.** The same inputs give the same key; a new shape, a new
-  tensor (`data_ptr`), seed, config or `dark_sky` value gives another; the
-  pixel ids enter by shape only (they are copied into the graph).
+- **The key.** The arguments enter by shape: new tensors of the same
+  shapes (scene, camera, pixel ids), a new seed, spp or first sample keep
+  the key (one graph); a new shape, config, `requires_grad` or `dark_sky`
+  value gives another.
 - **The split `prepare`.** `integrator.prepare`'s tables equal the JAX
   package's, its host constants the JAX scene's scalars; and the hand-written
   sweep, which takes `dark_sky` from `_TraceRecordReplay`'s ctx, gives
@@ -126,33 +127,39 @@ def test_frame_key():
     cam, cfg = camera(), TConfig(max_bounces=B)
     pid = pids()
 
-    def key(scene=ts, camera=cam, cfg=cfg, pid=pid, seed=0, **kw):
-        return trenderer.frame_key(scene, camera, cfg, W, H, pid, SPP, seed,
-                                   **kw)
+    def key(scene=ts, camera=cam, cfg=cfg, pid=pid):
+        return trenderer.frame_key(scene, camera, cfg, W, H, pid)
 
     k0 = key()
     assert key() == k0 and hash(key()) == hash(k0)
-    # the pixel ids are copied into the graph: their address is not in it
+    # the arguments enter by shape: new pixel ids, scene and camera
+    # tensors of the same shapes are the same key
     assert key(pid=pid.clone()) == k0
+    md = ts.mat_diffuse.clone()
+    assert key(scene=dataclasses.replace(ts, mat_diffuse=md)) == k0
+    assert key(camera=dataclasses.replace(
+        cam, position=cam.position.clone())) == k0
+    # the seed, the spp and the first sample are not in it: one graph
+    cache = StubCache(backend=StubBackend())
+    for seed, first, spp in ((0, 0, SPP), (1, 0, SPP), (0, 4, SPP),
+                             (0, 0, 1)):
+        trenderer.render_frame(ts, cam, cfg, W, H, pid, spp, seed, first,
+                               cache=cache)
+    assert len(cache) == 1 and cache.captures == 1
+    # a new shape, config, or a tensor that requires grad: another key
     assert key(pid=pid[:100]) != k0
-    assert key(seed=1) != k0
-    assert key(first_sample=4) != k0
     assert key(cfg=dataclasses.replace(cfg, max_bounces=4)) != k0
     assert key(cfg=dataclasses.replace(cfg, compat="physical")) != k0
-    # a new tensor, a new shape, a tensor that requires grad
-    md = ts.mat_diffuse.clone()
-    assert key(scene=dataclasses.replace(ts, mat_diffuse=md)) != k0
     assert key(scene=dataclasses.replace(
-        ts, sph_center=ts.sph_center[:4])) != k0
+        ts, sky_data=ts.sky_data.repeat(2, 1))) != k0
     assert key(scene=dataclasses.replace(
         ts, mat_diffuse=ts.mat_diffuse.detach().requires_grad_(True))) != k0
-    assert key(camera=dataclasses.replace(
-        cam, position=cam.position.clone())) != k0
-    # dark_sky: a new tensor, or a new value written in place
+    # dark_sky: a new tensor of the same value is the same key, a new value
+    # written in place another (a host constant, in the key by value)
     dark = ts.dark_sky.clone()
     s1 = dataclasses.replace(ts, dark_sky=dark)
     k1 = key(scene=s1)
-    assert k1 != k0 and key(scene=s1) == k1
+    assert k1 == k0 and key(scene=s1) == k1
     dark.fill_(1.0 - float(dark))
     assert key(scene=s1) != k1
     assert tintegrator.host_constants(s1).dark_sky == float(dark)
@@ -237,9 +244,7 @@ class StubGraph:
 
 
 def _leaves(x):
-    out = []
-    graphs._tree_map(out.append, x)
-    return out
+    return graphs.tensors(x)
 
 
 class StubBackend:

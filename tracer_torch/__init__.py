@@ -17,8 +17,9 @@ checkpointed render of `render(ckpt_dir=...)`), `cli.py`
 scenes`) and `dist/` (the sharded render and training step over a
 (dp, sp) mesh of torch.distributed ranks, the multi-host film, the
 dry-run twin). On the card, `render`, the tiled render, `fit`'s step on
-the Cornell family and the bench's bodies replay CUDA graphs
-(`render/graphs.py`), the counterpart of the JAX package's `jax.jit`.
+every scene and the bench's bodies replay CUDA graphs keyed by their
+arguments' shapes (`render/graphs.py`), the counterpart of the JAX
+package's `jax.jit`.
 """
 
 from tracer_torch.core.config import RenderConfig

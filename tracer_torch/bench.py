@@ -28,17 +28,20 @@ sweep on B3, B4 where the atlas has texels; `protocol_step` gives the
 gradients too), `per_primary`. Their inputs come from `inputs(...)`,
 which takes the device (default "cuda"). The random streams start from
 seed 0, the port's `jax.random.key(0)`. On the card `frame_scalar` and
-`protocol_step` are CUDA graphs (`render/graphs.py`), as `bench.py` times
-`jax.jit(frame)` and `jax.jit(gsum)`: the first call runs the body and
-captures it, every later call replays it.
+`protocol_step` replay CUDA graphs (`render/graphs.py`), as `bench.py`
+times `jax.jit(frame)` and `jax.jit(gsum)`: the first call runs the body
+and captures it, every later call replays it (the frame: `render_frame`'s
+graph of one sample, once a sample).
 
 Timing discipline (`timeit`): one untimed call (on first use the nvcc
 build; then the first run and the graph's capture), then `reps` calls
 queued without a synchronise, then one read of the last scalar to the
 host, which waits for every queued call (the card runs one stream in
-order). A replay enqueues a frame's 5,481 launches as one graph launch, so
-the queued wall is the card's time, not the host's enqueue (eager, the
-card idled 0.91-0.95 of a 16-spp Cornell frame, PERF.md section 5). A
+order). A frame's 5,481 launches are enqueued as 16 graph launches, one a
+sample, after the frame's tables (built eagerly, a few dozen small
+launches), so the queued wall is the card's time, not the host's enqueue
+(eager, the card idled 0.91-0.95 of a 16-spp Cornell frame, PERF.md
+section 5). A
 host synchronisation inside the timed body would bound how far the host
 runs ahead of the card; `torch.cuda.set_sync_debug_mode("warn")` counts
 none in a frame or a protocol step, compiled or eager, after the first
@@ -65,10 +68,11 @@ from typing import NamedTuple
 
 import torch
 
+from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
-from tracer_torch.render import graphs
+from tracer_torch.render import graphs, integrator
 from tracer_torch.render.camera import Camera, default_camera
-from tracer_torch.render.renderer import frame_key, render_pixels
+from tracer_torch.render.renderer import render_frame, render_pixels
 from tracer_torch.scene.device import DeviceScene, compile_scene
 from tracer_torch.scenes import zoo
 
@@ -105,56 +109,49 @@ def inputs(sb, width, height, spp, device="cuda", camera=None) -> Inputs:
                                device=device), spp)
 
 
-def _key(name, b: Inputs, *static):
-    return (name,) + frame_key(b.scene, b.camera, b.cfg, b.width, b.height,
-                               b.pixel_ids, b.spp, SEED) + static
-
-
 def frame_scalar(b: Inputs):
     """The frame's mean radiance (`bench.py`'s `frame`): a 0-d tensor on
-    the frame's device, not yet read to the host. On the card one graph
-    (`render/graphs.py`, as `bench.py` times `jax.jit(frame)`): the frame
-    and its mean, replayed from the second call on."""
-    def body(pid):
-        with torch.no_grad():
-            acc = render_pixels(b.scene, b.camera, b.cfg, b.width, b.height,
-                                pid, b.spp, SEED)
-            return (acc / b.spp).mean()
-
-    if not graphs.CACHE.active(b.pixel_ids, b.cfg):
-        return body(b.pixel_ids)
-    return graphs.CACHE.call(_key("bench_frame", b), body, (b.pixel_ids,),
-                             keep=(b.scene, b.camera))
+    the frame's device, not yet read to the host. On the card the frame
+    is `renderer.render_frame`'s graph (`render/graphs.py`, as `bench.py`
+    times `jax.jit(frame)`: one sample, replayed once a sample), then the
+    mean."""
+    with torch.no_grad():
+        acc = render_frame(b.scene, b.camera, b.cfg, b.width, b.height,
+                           b.pixel_ids, b.spp, SEED)
+        return (acc / b.spp).mean()
 
 
 def protocol_step(b: Inputs, trainable=TRAINABLE):
     """The protocol step: (every gradient entry summed to a 0-d tensor,
     the loss, {name: gradient}) for the protocol loss (the frame's mean
     radiance) with respect to the `trainable` scene fields. Its leaves are
-    detached views of the scene's own tensors, made inside the body: they
-    share the scene's storage, so the graph's key stays the same from call
-    to call with no copy. On the card (`graphs.CACHE.active`), one graph
-    on every scene (`bench.py`'s `jax.jit(gsum)`): forward,
-    `loss.backward()` (the hand-written, the general or the plain autodiff
-    backward) and the sum; on the CPU, with `kernels="off"` and inside
+    detached views of the body's scene tensors, made inside the body. On
+    the card (`graphs.CACHE.active`), one graph on every scene
+    (`bench.py`'s `jax.jit(gsum)`): forward, `loss.backward()` (the
+    hand-written, the general or the plain autodiff backward) and the
+    sum, keyed by its arguments' shapes (the scene, camera, pixel ids, the
+    seed word and the tables); on the CPU, with `kernels="off"` and inside
     `graphs.CACHE.disabled()` the eager body, whose autograd graph
     `backward()` frees before the function returns."""
-    def body(pid):
-        params = {k: getattr(b.scene, k).detach().requires_grad_(True)
+    def body(scene, camera, pid, word, tables):
+        params = {k: getattr(scene, k).detach().requires_grad_(True)
                   for k in trainable}
-        scene = dataclasses.replace(b.scene, **params)
+        scene = dataclasses.replace(scene, **params)
         with torch.enable_grad():
-            acc = render_pixels(scene, b.camera, b.cfg, b.width, b.height,
-                                pid, b.spp, SEED)
+            acc = render_pixels(scene, camera, b.cfg, b.width, b.height,
+                                pid, b.spp, word, tables=tables)
             loss = (acc / b.spp).mean()
             loss.backward()
         grads = {k: p.grad for k, p in params.items()}
         return sum(g.sum() for g in grads.values()), loss.detach(), grads
 
+    args = (b.scene, b.camera, b.pixel_ids,
+            rng.seed_tensor(SEED, b.pixel_ids.device),
+            integrator.prepare(b.scene))
     if not graphs.CACHE.active(b.pixel_ids, b.cfg):
-        return body(b.pixel_ids)
-    return graphs.CACHE.call(_key("bench_step", b, tuple(trainable)), body,
-                             (b.pixel_ids,), keep=(b.scene, b.camera))
+        return body(*args)
+    return graphs.CACHE.call(("bench_step", b.cfg, b.width, b.height, b.spp,
+                              tuple(trainable)), body, args)
 
 
 def grad_sum(b: Inputs, trainable=TRAINABLE):

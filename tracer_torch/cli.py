@@ -155,10 +155,13 @@ def _compile_stats(args):
     (`kernels/_build.py`: one nvcc per source, then a link, or a cached
     library of the same sources and flags), then the first call of the
     compiled frame (`renderer.render_frame`; `first_run_s`), split on the
-    card into the warm-up (the eager body on the capture stream: the
-    trace), the capture and the graph's instantiation, then the first
-    replay (a second call). The split is null where nothing was
-    captured: on the CPU, where both calls run the eager body."""
+    card into the warm-up (the first sample run eagerly on the capture
+    stream: the trace), the capture and the graph's instantiation of one
+    sample (the call then replays it for the other samples), then the
+    first replayed call (a second call). The split is null where nothing was
+    captured: on the CPU, where both calls run the eager body, and where
+    this process already holds a graph of the frame's shapes (the first
+    call then replays it)."""
     from tracer_torch.kernels import _build as kbuild
     from tracer_torch.render import graphs
     from tracer_torch.render.renderer import render_frame
@@ -233,23 +236,21 @@ def occupancy_frame(scene, cfg, o, d, tm, keys, tables):
     (`integrator.prepare(scene)`, built once by the caller). Returns (the
     mean radiance, the share of lanes active at each bounce's start [B]),
     device tensors. On the card one graph of `graphs.CACHE` (where it is
-    active), keyed by the scene's, config's and tables' signature, the
-    host constants and the rays' shapes; the rays are copied into it."""
+    active), keyed by the config and by its arguments' shapes (the
+    scene, the rays, the tables with their host constants by value); a
+    tensor is copied in only where it is new or was written since."""
     from tracer_torch.render import graphs, integrator
 
     @torch.no_grad()
-    def body(ox, oy, oz, dx, dy, dz, tm, keys):
+    def body(scene, ox, oy, oz, dx, dy, dz, tm, keys, tables):
         rad, aux = integrator.trace(scene, cfg, (ox, oy, oz), (dx, dy, dz),
                                     tm, keys, tables=tables, with_aux=True)
         return rad.mean(), aux["occupancy"]
 
-    rays = (*o, *d, tm, keys)
+    args = (scene, *o, *d, tm, keys, tables)
     if not graphs.CACHE.active(keys, cfg):
-        return body(*rays)
-    key = (("occupancy", graphs.signature((scene, cfg, tables)),
-            integrator.host_constants(scene))
-           + tuple(graphs.meta(t) for t in rays))
-    return graphs.CACHE.call(key, body, rays, keep=(scene, tables))
+        return body(*args)
+    return graphs.CACHE.call(("occupancy", cfg), body, args)
 
 
 def cmd_benchmark(args):

@@ -13,7 +13,11 @@ then logical. `tracer_torch/kernels/csrc/pcg.cuh` is the same chain in
 
 Seeds: the JAX renderer folds `jax.random.key(s)` into one word with
 `rng._seed_word`; for the default threefry key the key data is [0, s], so
-that word is `_pcg(s)`. `seed_word` computes it without JAX.
+that word is `_pcg(s)`. `seed_word` computes it without JAX, and
+`seed_tensor` writes it into a 0-d tensor on the device (a fill, not a
+copy from the host): the form a compiled entry point takes the seed in,
+as `jax.jit` traces `base_key` (`render/graphs.py`). Sample indices may
+be 0-d tensors too (`salted`).
 """
 
 from __future__ import annotations
@@ -62,17 +66,28 @@ def seed_word(seed: int) -> int:
     return _pcg(int(seed) & _M32)
 
 
-def ray_keys(seed: int, ray_ids):
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """`seed_word(seed)` in a 0-d int64 tensor on `device`, written by a
+    fill (a launch with the word as its argument; no host sync)."""
+    return torch.full((), seed_word(seed), dtype=torch.int64, device=device)
+
+
+def ray_keys(seed, ray_ids):
     """Per-ray keys: hash the flat ray id with the seed word.
 
-    `ray_ids` is an int tensor [N]; returns keys [N] (int64, uint32 values).
+    `seed` is the seed (a python int, hashed here by `seed_word`) or its
+    word in a 0-d int64 tensor (`seed_tensor`); the int64 arithmetic is
+    the same either way, so are the keys. `ray_ids` is an int tensor [N];
+    returns keys [N] (int64, uint32 values).
     """
+    word = seed if isinstance(seed, torch.Tensor) else seed_word(seed)
     ids = ray_ids.to(torch.int64) & _M32
-    return _pcg(seed_word(seed) ^ _salt_word(ids))
+    return _pcg(word ^ _salt_word(ids))
 
 
 def salted(keys, *salts):
-    """Derive sub-stream keys from one or more scalar salts."""
+    """Derive sub-stream keys from one or more scalar salts (python ints or
+    0-d int tensors, such as a compiled frame's sample index)."""
     for s in salts:
         keys = _mix(keys, s)
     return keys

@@ -22,11 +22,13 @@ index, so a sharded render traces the same rays as an unsharded one.
 
 Compiled: on the card the sharded frame (`sharded_sum` without grad, as
 `render_image_multihost` calls it: the JAX package's
-`jax.jit(render_pixels_sharded)`) and the sharded step
-(`train.make_step(mesh=)`) are CUDA graphs (`render/graphs.py`) that hold
-the render and the NCCL collectives; a gloo mesh stays eager
-(`RayMesh.capturable`). `collective_spans` times collectives on the
-eager route only: a captured collective cannot be synchronised around.
+`jax.jit(render_pixels_sharded)`) replays the frame's graph of one sample
+(`renderer.render_frame`) and all-reduces the sp sum after it, and the
+sharded step (`train.make_step(mesh=)`) is a CUDA graph
+(`render/graphs.py`) that holds the render and the NCCL collectives; a
+gloo mesh stays eager (`RayMesh.capturable`). `collective_spans` times
+collectives on the eager route only: a captured collective cannot be
+synchronised around.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch.distributed as dist
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.render.camera import Camera
 from tracer_torch.render import graphs
-from tracer_torch.render.renderer import frame_key, render_pixels
+from tracer_torch.render.renderer import render_frame, render_pixels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,40 +184,37 @@ def mesh_key(mesh: Optional[RayMesh]) -> tuple:
 
 
 def sharded_sum(scene, camera: Camera, cfg: RenderConfig, width: int,
-                height: int, pixel_ids, nsamples: int, seed: int,
-                mesh: RayMesh):
+                height: int, pixel_ids, nsamples: int, seed,
+                mesh: RayMesh, tables=None):
     """This rank's dp block of the SUM over the `nsamples` samples
     ([N / n_dp, 3], summed over the sp group); see
-    `render_pixels_sharded`. Without grad it is the sharded frame: one
-    graph of `graphs.CACHE` where the rule holds
-    (`graphs.CACHE.active(pids, cfg, mesh)`: not over gloo), keyed by
-    `renderer.frame_key` of this rank's pixels and samples and
-    `mesh_key`; the render and the sp sum's all-reduce are replayed. With
-    grad mode on it runs eagerly (`train.make_step(mesh=)` captures the
-    whole step around it)."""
+    `render_pixels_sharded`. Without grad it is the sharded frame: where
+    the rule holds (`graphs.CACHE.active(pids, cfg, mesh)`: not over
+    gloo) this rank's pixels and samples go through
+    `renderer.render_frame`'s graph (one sample, replayed once a sample
+    from the rank's first sample; the frame's key, by shape), and the sp
+    sum's all-reduce follows the samples. With grad mode on it runs
+    eagerly (`train.make_step(mesh=)` captures the whole step around it,
+    with `seed` as the step's seed word and `tables` its tables)."""
     _check(mesh, pixel_ids.shape[0], nsamples)
     nb = pixel_ids.shape[0] // mesh.shape["dp"]
     k = nsamples // mesh.shape["sp"]
     first = mesh.sp_rank * k
     pids = pixel_ids[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
-
-    def body(pid):
-        rad = render_pixels(scene, camera, cfg, width, height, pid, k, seed,
-                            first_sample=first)
-        if mesh.shape["sp"] > 1:
-            rad = _SumOverGroup.apply(rad, mesh.sp_group)
-        return rad
-
     if torch.is_grad_enabled() or not graphs.CACHE.active(pids, cfg, mesh):
-        return body(pids)
-    key = (("sharded",) + frame_key(scene, camera, cfg, width, height, pids,
-                                    k, seed, first) + mesh_key(mesh))
-    return graphs.CACHE.call(key, body, (pids,), keep=(scene, camera))
+        rad = render_pixels(scene, camera, cfg, width, height, pids, k, seed,
+                            first_sample=first, tables=tables)
+    else:
+        rad = render_frame(scene, camera, cfg, width, height, pids, k, seed,
+                           first_sample=first)
+    if mesh.shape["sp"] > 1:
+        rad = _SumOverGroup.apply(rad, mesh.sp_group)
+    return rad
 
 
 def render_pixels_sharded(scene, camera: Camera, cfg: RenderConfig,
                           width: int, height: int, pixel_ids, nsamples: int,
-                          seed: int, mesh: RayMesh):
+                          seed, mesh: RayMesh, tables=None):
     """Mean radiance of this rank's pixels: the dp block `i` of the full
     `pixel_ids` [N] (every rank passes the same ids, as JAX's global
     array), over the samples of sp block `j` (global sample ids, so the
@@ -224,9 +223,10 @@ def render_pixels_sharded(scene, camera: Camera, cfg: RenderConfig,
     dp-sharded [N, 3]. N must split over dp and `nsamples` over sp.
     Differentiable with respect to the scene's and the camera's tensors;
     sum the parameter gradients over the mesh (`all_reduce_grads`) for
-    those of the whole image's loss."""
+    those of the whole image's loss. `seed` and `tables` as
+    `renderer.render_pixels` takes them."""
     return sharded_sum(scene, camera, cfg, width, height, pixel_ids,
-                       nsamples, seed, mesh) / nsamples
+                       nsamples, seed, mesh, tables) / nsamples
 
 
 def all_reduce_grads(mesh: RayMesh, leaves):
@@ -260,9 +260,9 @@ def train_step(scene, camera: Camera, cfg: RenderConfig, width: int,
     `fit()` runs, with the JAX package's trainables (sph_center,
     sph_radius, mat_diffuse, tex_data, mesh_verts, cam_position) and its
     stale-pack guard. Returns (loss, new_scene, new_camera); the loss is
-    the whole image's. Its leaves are new at every call, so a graph keyed
-    on them would never replay: the step runs eagerly (`fit(mesh=)` and
-    a kept `make_step(mesh=)` replay theirs)."""
+    the whole image's. A one-shot step (its optimizer and leaves are made
+    for the one call): it runs eagerly, inside `graphs.CACHE.disabled()`
+    (`fit(mesh=)` and a kept `make_step(mesh=)` replay theirs)."""
     from tracer_torch import train as T
 
     trainable = ["sph_center", "sph_radius", "mat_diffuse", "tex_data",

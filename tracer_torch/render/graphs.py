@@ -1,20 +1,21 @@
 """Compiled entry points: the port's counterpart of `jax.jit` at the JAX
-package's jitted entry points (`render_pixels`, whose 16-spp frame is one
-XLA program; `fit`'s step on every scene, both `custom_vjp` modes and
-`mesh=`; the CLI's `benchmark --occupancy` frame; the sharded frame of
-`render_image_multihost`; `bench.py`'s `jax.jit(frame)` and
-`jax.jit(gsum)`), as CUDA graphs.
+package's jitted entry points (`render_pixels`, whose frame is one XLA
+program with the samples in a `lax.scan`; `fit`'s step on every scene,
+both `custom_vjp` modes and `mesh=`; the CLI's `benchmark --occupancy`
+frame; the sharded frame of `render_image_multihost`; `bench.py`'s
+`jax.jit(frame)` and `jax.jit(gsum)`), as CUDA graphs.
 
 A `GraphCache` maps a key to a captured graph. The first call with a new
 key runs the body eagerly on a side stream (the warm-up: on first use it
 also builds the kernels with nvcc and fills the launchers' per-process
-memos, the occupancy queries and shared-memory attributes), returns that
-result, and then captures the body once more as a CUDA graph on the same
-side stream (`torch.cuda.CUDAGraph`, a private memory pool of its own,
-global capture mode). Every later call with that key copies its inputs
-into the graph's static input buffers, replays the graph on the current
-stream and returns a copy of the static outputs, which the next replay
-overwrites. So an entry point replays from its second call on.
+memos, the occupancy queries and shared-memory attributes), then makes
+static copies of the body's arguments and captures the body on them as a
+CUDA graph on the same side stream (`torch.cuda.CUDAGraph`, a private
+memory pool of its own, global capture mode). Every later call with that
+key copies into the static copies the arguments that changed, replays the
+graph on the current stream and returns a copy of the static outputs,
+which the next replay overwrites. So an entry point replays from its
+second call on.
 
 - **Where.** Graphs run on the card only. One written rule,
   `GraphCache.active(t, cfg, mesh)`, decides for every route
@@ -29,24 +30,43 @@ overwrites. So an entry point replays from its second call on.
   route runs its eager body, as `jax.disable_jit` does; never because a
   capture failed. On a mesh the warm-up runs the collectives first, so
   NCCL's communicator exists before a captured collective.
-  (`dist.sharding.train_step`, a one-shot step on new leaves at every
-  call, runs eagerly: a graph keyed on them would never replay.)
-- **The key.** The entry point's name, its static arguments (the config,
-  width, height, samples, first sample: what JAX marks static), and the
-  `signature` of every tensor the body reads: shape, dtype, strides,
-  device, `requires_grad` and `data_ptr`. A graph reads its inputs where
-  they lay at capture, so the entry keeps a reference to them (`keep`):
-  their memory cannot be handed to another tensor while the graph lives,
-  and a value written in place (Adam's update of a parameter) is what the
-  next replay reads. Tensors copied into static buffers (pixel ids) enter
-  by shape and dtype only. The host reads of a frame
-  (`integrator.host_constants`: `dark_sky`, an image sky's size) are
-  baked into the kernels' arguments, so their values are in the key: a
-  new `dark_sky` value (it has a gradient, though no `train.py` field
-  trains it) is a new key.
-- **The seed.** The port hashes the seed into the ray keys on the host
-  (`core/rng.py::ray_keys`), so the seed is in the key: a new seed costs
-  a capture, where JAX traces `base_key` and compiles once.
+  (`dist.sharding.train_step`, a one-shot step, runs eagerly.)
+- **The key: the arguments by shape, as `jax.jit` keys them.** The body
+  reads nothing but its arguments (a pytree: the scene and camera
+  dataclasses, leaves, target, pixel ids, rays, the seed word, the
+  frame's tables) and what the caller's key names by value (the entry
+  point's name, the config, width, height, samples where JAX has them
+  static, a mesh's shape and coordinate). The cache adds the arguments'
+  `signature`: each tensor by `meta` (shape, dtype, strides, device,
+  `requires_grad`, not its address or its values), every other leaf by
+  value (the dataclasses' ints, bools and tuples; the tables' host
+  constants), and which arguments are one tensor twice (a training leaf
+  is also its scene's field). So a new camera, scene of the same shapes,
+  seed or set of leaves replays the graph. Strides are in the key where
+  JAX has none, because a torch tensor can arrive in any layout and a
+  reduction may follow it.
+- **Static copies.** At capture the cache copies every argument tensor
+  once (one copy for a tensor that appears twice); a tensor that requires
+  grad becomes a leaf of its own (`detach().clone().requires_grad_()`),
+  whose `.grad` the captured backward writes. At each call it copies in
+  only the arguments that are another tensor than the one it last copied
+  there or were written in place since (the tensor's `_version`, which
+  every in-place op bumps): Adam's update makes a step's leaves copy in
+  at every step, a scene's other tensors copy in once.
+- **The seed and the samples.** The seed enters as its word in a 0-d
+  tensor (`rng.seed_tensor`), like any argument. A frame's samples are
+  `lax.scan`'s counterpart (`call(carry=, steps=)`): the graph holds one
+  sample (`acc += trace(sample idx)`, then `idx += 1`, on the static
+  `acc` and `idx`) and a call replays it once a sample, so one graph
+  serves every spp and first sample. A step stays one graph a step with
+  its samples static, as in JAX's `make_step`.
+- **Host constants.** A frame's host reads (`integrator.host_constants`:
+  `dark_sky`, an image sky's size) are made before the warm-up, from the
+  caller's scene, into the frame's tables (`integrator.prepare`), which
+  the body takes as an argument: the values are baked into the kernels'
+  arguments, so they are in the key by value. It is the one place the
+  port keys on a value JAX traces (a new `dark_sky` value is a new key;
+  no `train.py` field trains it).
 - **Launch counts.** A kernel wrapper adds one to its module's `LAUNCHES`
   where it launches; a replay runs no wrapper. The cache records each
   counter's increase during the capture (which launches nothing), takes it
@@ -58,15 +78,17 @@ overwrites. So an entry point replays from its second call on.
 - **Size.** At most `max_graphs` graphs (8 by default), least recently
   used first out; an evicted graph's pool goes back to the card. A
   16-spp protocol step's pool holds about what the step's peak does
-  (3.8-4.4 GB on 850x480, PERF.md section 5), a frame's about a tenth.
+  (3.8-4.4 GB on 850x480, PERF.md section 5), a frame's sample graph
+  much less.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from collections import OrderedDict
-from dataclasses import fields, is_dataclass
+from dataclasses import fields, is_dataclass, replace
 from typing import Callable, Optional
 
 import torch
@@ -89,14 +111,20 @@ def launch_counts() -> dict:
     return {k: m.LAUNCHES for k, m in COUNTED.items()}
 
 
+def meta(t: torch.Tensor):
+    """A tensor's part of a graph's key: its shape, dtype, strides, device
+    and `requires_grad`, not its address or its values."""
+    return ("tensor", tuple(t.shape), t.dtype, t.stride(), t.device,
+            t.requires_grad)
+
+
 def signature(x):
-    """A hashable description of `x` for a graph's key: a tensor by shape,
-    dtype, strides, device, `requires_grad` and `data_ptr`; dataclasses,
-    dicts, tuples and lists by their parts; anything else as it is (it
-    must be hashable: ints, floats, strings, None)."""
+    """A hashable description of `x` for a graph's key: a tensor by
+    `meta`; dataclasses (with their field names), dicts, tuples and lists
+    by their parts; anything else by value (it must be hashable: ints,
+    floats, strings, None)."""
     if isinstance(x, torch.Tensor):
-        return ("tensor", tuple(x.shape), x.dtype, x.stride(), str(x.device),
-                x.requires_grad, x.data_ptr())
+        return meta(x)
     if is_dataclass(x) and not isinstance(x, type):
         return (type(x).__name__,) + tuple(
             (f.name, signature(getattr(x, f.name))) for f in fields(x))
@@ -108,35 +136,88 @@ def signature(x):
     return x
 
 
-def meta(t: torch.Tensor):
-    """The key of an input copied into a static buffer: its shape, dtype
-    and device, not its address."""
-    return ("input", tuple(t.shape), t.dtype, str(t.device))
+def tensors(x) -> list:
+    """The tensors of the pytree `x`, in `signature`'s order (a tensor
+    that appears twice, twice)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if is_dataclass(x) and not isinstance(x, type):
+        parts = [getattr(x, f.name) for f in fields(x)]
+    elif isinstance(x, dict):
+        parts = [x[k] for k in sorted(x)]
+    elif isinstance(x, (tuple, list)):
+        parts = x
+    else:
+        return []
+    return [t for p in parts for t in tensors(p)]
 
 
-def _tree_map(fn, x):
+def tree_map(fn, x):
+    """`x` with each tensor t replaced by fn(t): dataclasses (by
+    `dataclasses.replace`), named tuples, tuples, lists and dicts by their
+    parts; anything else as it is."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if is_dataclass(x) and not isinstance(x, type):
+        return replace(x, **{f.name: tree_map(fn, getattr(x, f.name))
+                             for f in fields(x)})
     if isinstance(x, dict):
-        return {k: _tree_map(fn, v) for k, v in x.items()}
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, v) for v in x))
     if isinstance(x, (tuple, list)):
-        return type(x)(_tree_map(fn, v) for v in x)
+        return type(x)(tree_map(fn, v) for v in x)
     return x
 
 
-class Graph:
-    """One captured body: the graph, its static inputs and outputs, the
-    launches a replay stands for, what it keeps alive, and what its
-    capture cost (seconds of the warm-up, the capture and the
-    instantiation; the bytes its pool reserved)."""
+def key_of(key, args=(), carry=()):
+    """(the key under which `GraphCache.call(key, body, args, carry)`
+    caches its graph, the distinct tensors of `args` in order). The full
+    key holds the caller's `key`, the arguments' `signature`, which of
+    them are one tensor twice, and the carry's `meta`."""
+    ts = tensors(args)
+    first = {}
+    alias = tuple(first.setdefault(id(t), i) for i, t in enumerate(ts))
+    full = (key, signature(args), alias, tuple(meta(c) for c in carry))
+    return full, [t for i, t in enumerate(ts) if alias[i] == i]
 
-    def __init__(self, key, graph, inputs, outputs, launches, keep, times,
-                 pool_bytes):
+
+def _stamp(t: torch.Tensor):
+    """What says that `t` is the tensor last copied and was not written
+    since: (a weak reference to it, its address, its version)."""
+    return weakref.ref(t), t.data_ptr(), t._version
+
+
+class Graph:
+    """One captured body: the graph, its static inputs (one a distinct
+    argument tensor, with the stamp of the tensor last copied into it),
+    carry and outputs, the launches a replay stands for, and what its
+    capture cost (seconds of the warm-up, the capture and the
+    instantiation; the bytes its pool reserved). `replays` counts the
+    calls answered by replaying it, `runs` the replays of the graph (a
+    frame's call runs it once a sample)."""
+
+    def __init__(self, key, graph, inputs, stamps, carry, outputs,
+                 launches, times, pool_bytes):
         self.key, self.graph = key, graph
-        self.inputs, self.outputs = inputs, outputs
-        self.launches, self.keep = launches, keep
+        self.inputs, self.stamps = inputs, stamps
+        self.carry, self.outputs = carry, outputs
+        self.launches = launches
         self.times, self.pool_bytes = times, pool_bytes
-        self.replays = 0
+        self.replays = self.runs = 0
+
+    @torch.no_grad()
+    def copy_in(self, unique, carry):
+        """Copy into the static inputs the distinct argument tensors
+        `unique` that are not the tensors last copied there or were
+        written since, and the carry, always."""
+        for i, x in enumerate(unique):
+            ref, ptr, version = self.stamps[i]
+            if ref() is not x or ptr != x.data_ptr() or version != x._version:
+                self.inputs[i].copy_(x)
+                self.stamps[i] = _stamp(x)
+        for s, x in zip(self.carry, carry):
+            s.copy_(x)
 
 
 class CudaBackend:
@@ -161,7 +242,7 @@ class CudaBackend:
             out = body(*inputs)
         cur.wait_stream(side)
         # the result was made on the side stream and is used on this one
-        _tree_map(lambda t: t.record_stream(cur), out)
+        tree_map(lambda t: t.record_stream(cur), out)
         return out
 
     def capture(self, body, inputs):
@@ -211,7 +292,9 @@ class GraphCache:
         return len(self._graphs)
 
     def __contains__(self, key):
-        return key in self._graphs
+        """Whether a graph of the caller's `key` is cached (for any
+        arguments' shapes)."""
+        return any(g.key == key for g in self._graphs.values())
 
     def graphs(self):
         return list(self._graphs.values())
@@ -237,37 +320,69 @@ class GraphCache:
         finally:
             self.enabled = was
 
-    def call(self, key, body: Callable, inputs=(), keep=()):
-        """`body(*inputs)`, a pytree of tensors, by the graph of `key`:
-        replayed if cached, else the warm-up's result, with the body then
-        captured on static copies of `inputs`. `keep`: what the body reads
-        besides `inputs` (held while the graph lives)."""
-        g = self._graphs.get(key)
-        if g is not None:
-            self._graphs.move_to_end(key)
-            for s, x in zip(g.inputs, inputs):
-                s.copy_(x)
-            g.graph.replay()
-            for k, n in g.launches.items():
-                COUNTED[k].LAUNCHES += n
+    def call(self, key, body: Callable, args=(), carry=(), steps=1):
+        """`body(*args, *carry)`, a pytree of tensors, by the graph of
+        `key` and the arguments' `signature`: replayed if cached, else the
+        warm-up's result, with the body then captured on static copies of
+        `args` and `carry` (module docstring). The body reads nothing but
+        `args` and what `key` holds by value.
+
+        `carry`: tensors the body updates in place (`lax.scan`'s carry: a
+        sum and a sample index), copied in at every call. The body then
+        runs `steps` times, the first at a new key as the warm-up, every
+        other as a replay of the graph of one step, and the call returns
+        a copy of the last step's result."""
+        if steps < 1:
+            raise ValueError(f"steps={steps}: a graph runs at least once")
+        full, unique = key_of(key, args, carry)
+        g = self._graphs.get(full)
+        if g is None:
+            out = self._capture(full, key, body, args, carry, unique)
+            g, todo = self.last, steps - 1
+            if not todo:
+                return out
+        else:
+            self._graphs.move_to_end(full)
             g.replays += 1
-            return _tree_map(torch.clone, g.outputs)
+            todo = steps
+        g.copy_in(unique, carry)
+        for _ in range(todo):
+            g.graph.replay()
+        g.runs += todo
+        for k, n in g.launches.items():
+            COUNTED[k].LAUNCHES += n * todo
+        return tree_map(torch.clone, g.outputs)
+
+    def _capture(self, full, key, body, args, carry, unique):
+        """The warm-up (one step on the caller's tensors, whose result it
+        returns), then the capture on static copies, cached as `full`."""
         t0 = time.perf_counter()
-        out = self.backend.warm_up(body, inputs)
+        out = self.backend.warm_up(body, (*args, *carry))
         warm_s = time.perf_counter() - t0
-        statics = [x.clone() for x in inputs]
+        made = {}
+
+        def static(x):
+            if id(x) not in made:
+                s = x.detach().clone()
+                made[id(x)] = s.requires_grad_(True) if x.requires_grad else s
+            return made[id(x)]
+
+        s_args = tree_map(static, args)
+        s_carry = tuple(c.detach().clone() for c in carry)
         before = launch_counts()
         try:
-            graph, outputs, times, pool = self.backend.capture(body, statics)
+            graph, outputs, times, pool = self.backend.capture(
+                body, (*s_args, *s_carry))
         finally:
             # the capture launched nothing: take its counts back
             grew = {k: n - before[k] for k, n in launch_counts().items()}
             for k, n in before.items():
                 COUNTED[k].LAUNCHES = n
-        g = Graph(key, graph, statics, outputs,
-                  {k: n for k, n in grew.items() if n}, keep,
+        g = Graph(key, graph, [made[id(t)] for t in unique],
+                  [_stamp(t) for t in unique], s_carry, outputs,
+                  {k: n for k, n in grew.items() if n},
                   dict(warmup_s=warm_s, **times), pool)
-        self._graphs[key] = g
+        self._graphs[full] = g
         self.captures += 1
         self.last = g
         while len(self._graphs) > self.max_graphs:

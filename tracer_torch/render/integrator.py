@@ -63,6 +63,7 @@ module's docstring); compat="physical" fixes them.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -112,33 +113,39 @@ def _fused(scene, cfg: RenderConfig) -> bool:
 class HostConstants(NamedTuple):
     """What a frame reads from the card to the host: `dark_sky` (the shade
     kernel's and the sweep's `dark` argument) and an image sky's (W, H).
-    `host_constants` reads them once, before a frame or a capture; a
-    captured frame bakes them into its kernels' arguments, so they enter
-    the graph's key (`render/graphs.py`)."""
+    `host_constants` reads them once, before a frame or a capture, into
+    the frame's tables (`prepare`); a captured frame bakes them into its
+    kernels' arguments, so they enter the graph's key by value
+    (`render/graphs.py`)."""
     dark_sky: float
     sky_wh: Optional[tuple]
 
 
-# (weak reference, version) of the scalars last read, by the id of the
-# dark_sky tensor: a scene whose scalars were not written since keeps its
-# host constants without a read of the card
-_HOST_MEMO = {}
+# (weak references and versions of the scalars last read, constants) by
+# the id of the dark_sky tensor, for the last _HOST_SCENES scenes: a scene
+# whose scalars were not written since keeps its host constants without a
+# read of the card, also where a few scenes take turns
+_HOST_MEMO: "collections.OrderedDict" = collections.OrderedDict()
+_HOST_SCENES = 8
 
 
 def host_constants(scene) -> HostConstants:
-    """The frame's host reads (`HostConstants`), memoised per scene: a read
-    of the card happens only for scalars that are new or were written in
-    place since the last read (each tensor's version counter, which every
-    in-place op bumps)."""
+    """The frame's host reads (`HostConstants`), memoised per scene (the
+    last 8): a read of the card happens only for scalars that are new or
+    were written in place since the last read (each tensor's version
+    counter, which every in-place op bumps)."""
     ts = (scene.dark_sky, scene.sky_w, scene.sky_h)
-    stamp = tuple((weakref.ref(t), t._version) for t in ts)
     hit = _HOST_MEMO.get(id(ts[0]))
     if hit is not None and all(r() is t and v == t._version
                                for (r, v), t in zip(hit[0], ts)):
+        _HOST_MEMO.move_to_end(id(ts[0]))
         return hit[1]
     out = HostConstants(float(scene.dark_sky), _sky_wh(scene))
-    _HOST_MEMO.clear()    # one scene's constants: no growth, no stale ids
-    _HOST_MEMO[id(ts[0])] = (stamp, out)
+    _HOST_MEMO[id(ts[0])] = (tuple((weakref.ref(t), t._version)
+                                   for t in ts), out)
+    _HOST_MEMO.move_to_end(id(ts[0]))
+    while len(_HOST_MEMO) > _HOST_SCENES:
+        _HOST_MEMO.popitem(last=False)
     return out
 
 
@@ -156,10 +163,12 @@ class FrameTables(NamedTuple):
 
 @torch.no_grad()
 def prepare(scene):
-    """The per-frame scene tables the kernels read (built once): the
-    frame's host reads (`host_constants`, memoised per scene, so a read of
-    the card happens before a capture, never inside it), and the tables
-    built on the scene's device, inside a captured frame's graph."""
+    """The per-frame scene tables the kernels read (built once a frame or
+    a step): the frame's host reads (`host_constants`, memoised per
+    scene) and the tables built on the scene's device. A compiled entry
+    point builds them from the caller's scene before its graph and passes
+    them in (`render/graphs.py`), so a read of the card happens before a
+    capture, never inside it."""
     host = host_constants(scene)
     meshes = scene.mesh_mat.shape[0] > 0
     uv = scene.sphere_uv_needed and not _no_atlas(scene)

@@ -13,10 +13,13 @@ store's format is the JAX package's, so either package resumes the other's.
 Compiled frames: `render` and the tiled render trace each chunk or tile
 through `render_frame`, the no-grad `render_pixels` replayed from a CUDA
 graph on the card (`render/graphs.py`, the counterpart of the JAX
-package's jitted `render_pixels`): a frame has at most two chunk shapes
-and a tiled render at most four tile shapes, each one graph. On the CPU,
-and with `kernels="off"`, `render_frame` is the eager body.
-`render_pixels` stays the eager, differentiable function.
+package's jitted `render_pixels` and its `lax.scan` over samples): the
+graph holds one sample and is replayed once a sample, keyed by the
+arguments' shapes, so a new camera, seed, spp, first sample or scene of
+the same shapes replays it. A frame has at most two chunk shapes and a
+tiled render at most four tile shapes, each one graph. On the CPU, and
+with `kernels="off"`, `render_frame` is the eager body. `render_pixels`
+stays the eager, differentiable function.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from tracer_torch.render.film import TileManifest, to_image
 
 
 def camera_batch(camera: Camera, width: int, height: int, pixel_ids,
-                 sample_idx: int, seed: int):
+                 sample_idx, seed):
     """One sample's camera rays for a batch of pixels: pixel jitter and ray
-    time from the PCG streams. pixel_ids: [N] int (flat y*width + x).
+    time from the PCG streams. pixel_ids: [N] int (flat y*width + x);
+    `sample_idx` a python int or a 0-d int tensor, `seed` as
+    `rng.ray_keys` takes it (an int, or its word in a 0-d tensor).
     Returns (o, d, time, keys) with o, d planar."""
     keys = rng.ray_keys(seed, pixel_ids)
     keys = rng.salted(keys, sample_idx)
@@ -52,8 +57,7 @@ def camera_batch(camera: Camera, width: int, height: int, pixel_ids,
 
 
 def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
-                  height: int, pixel_ids, sample_idx: int, seed: int,
-                  tables=None):
+                  height: int, pixel_ids, sample_idx, seed, tables=None):
     """Radiance [N, 3] for one sample of a batch of pixels."""
     o, d, time, keys = camera_batch(camera, width, height, pixel_ids,
                                     sample_idx, seed)
@@ -61,14 +65,19 @@ def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
 
 
 def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
-                  height: int, pixel_ids, nsamples: int, seed: int,
-                  first_sample: int = 0):
+                  height: int, pixel_ids, nsamples: int, seed,
+                  first_sample: int = 0, tables=None):
     """SUM of `nsamples` sample passes for `pixel_ids` [N] (divide by
     nsamples for the mean radiance): samples first_sample,
     first_sample + 1, ... (a sample's random streams depend on its index).
-    Returns [N, 3] f32, differentiable with respect to the scene's and the
-    camera's tensors that require grad (`integrator.trace`)."""
-    tables = integrator.prepare(scene)
+    `seed`: an int, or its word in a 0-d tensor (`rng.seed_tensor`, as a
+    compiled body takes it). `tables`: `integrator.prepare(scene)` where
+    the caller made them (a compiled body: the graph's static copies, so
+    that nothing reads the card inside it). Returns [N, 3] f32,
+    differentiable with respect to the scene's and the camera's tensors
+    that require grad (`integrator.trace`)."""
+    if tables is None:
+        tables = integrator.prepare(scene)
     acc = torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,
                       device=pixel_ids.device)
     for s in range(first_sample, first_sample + nsamples):
@@ -77,38 +86,71 @@ def render_pixels(scene, camera: Camera, cfg: RenderConfig, width: int,
     return acc
 
 
+def _frame_args(scene, camera: Camera, pixel_ids, seed):
+    """A compiled frame's arguments (`render_frame`): the scene, camera,
+    pixel ids, the seed word in a 0-d tensor on their device (`seed` an
+    int, or its word already in one) and the frame's tables, made from
+    the caller's scene before the graph."""
+    if not isinstance(seed, torch.Tensor):
+        seed = rng.seed_tensor(seed, pixel_ids.device)
+    return scene, camera, pixel_ids, seed, integrator.prepare(scene)
+
+
+def _frame_carry(pixel_ids, first_sample: int):
+    """A compiled frame's carry: the sum (zeros [N, 3] f32) and the sample
+    index (0-d int64, `first_sample`), on the pixel ids' device."""
+    dev = pixel_ids.device
+    return (torch.zeros(tuple(pixel_ids.shape) + (3,), dtype=torch.float32,
+                        device=dev),
+            torch.full((), first_sample, dtype=torch.int64, device=dev))
+
+
+def _frame_static(cfg: RenderConfig, width: int, height: int):
+    """What a compiled frame's key holds by value besides its arguments'
+    signature: no seed, spp or first sample (`lax.scan` traces them)."""
+    return ("frame", cfg, width, height)
+
+
 def render_frame(scene, camera: Camera, cfg: RenderConfig, width: int,
-                 height: int, pixel_ids, nsamples: int, seed: int,
+                 height: int, pixel_ids, nsamples: int, seed,
                  first_sample: int = 0, cache=None):
     """`render_pixels` without grad (the SUM of `nsamples` samples, [N, 3]
-    f32), by a graph of `cache` (default `graphs.CACHE`) where it is
-    active (CUDA tensors, the kernels on): captured at the first call with
-    a new key (`frame_key`) and replayed from the second. Every scene and
-    route is graphed: the fused and the general bounce, meshes and
-    lights. The pixel ids are copied into the graph's buffer."""
+    f32; `seed` as `render_pixels` takes it), by a graph of `cache` (default `graphs.CACHE`) where it is
+    active (CUDA tensors, the kernels on): the counterpart of
+    `lax.scan`'s body, one sample (`acc += trace(sample idx)`, then
+    `idx += 1`) captured at the first call with a new key (`frame_key`)
+    and replayed `nsamples` times a call after `acc` is zeroed and `idx`
+    set to `first_sample`; samples add up in `render_pixels`' order, so
+    the frame is the eager one bit for bit. The seed, spp and first
+    sample are not in the key. Every scene and route is graphed: the
+    fused and the general bounce, meshes and lights."""
     cache = graphs.CACHE if cache is None else cache
+    with torch.no_grad():
+        if not cache.active(pixel_ids, cfg):
+            return render_pixels(scene, camera, cfg, width, height,
+                                 pixel_ids, nsamples, seed, first_sample)
 
-    def body(pid):
-        with torch.no_grad():
-            return render_pixels(scene, camera, cfg, width, height, pid,
-                                 nsamples, seed, first_sample)
+        def sample(scene, camera, pid, word, tables, acc, idx):
+            acc += _render_batch(scene, camera, cfg, width, height, pid,
+                                 idx, word, tables)
+            idx += 1
+            return acc
 
-    if not cache.active(pixel_ids, cfg):
-        return body(pixel_ids)
-    key = frame_key(scene, camera, cfg, width, height, pixel_ids, nsamples,
-                    seed, first_sample)
-    return cache.call(key, body, (pixel_ids,), keep=(scene, camera))
+        return cache.call(_frame_static(cfg, width, height), sample,
+                          _frame_args(scene, camera, pixel_ids, seed),
+                          carry=_frame_carry(pixel_ids, first_sample),
+                          steps=nsamples)
 
 
 def frame_key(scene, camera: Camera, cfg: RenderConfig, width: int,
-              height: int, pixel_ids, nsamples: int, seed: int,
-              first_sample: int = 0):
-    """`render_frame`'s graph key (`render/graphs.py`): the static
-    arguments, the scene's, camera's and config's signature, the host
-    constants and the pixel ids' shape."""
-    return ("frame", graphs.signature((scene, camera, cfg)), width, height,
-            nsamples, seed, first_sample, integrator.host_constants(scene),
-            graphs.meta(pixel_ids))
+              height: int, pixel_ids):
+    """The key of `render_frame`'s graph (`graphs.key_of`): the config,
+    width and height by value; the scene's, camera's and pixel ids'
+    signature (shapes, not addresses); the host constants by value, in
+    the tables' signature. No seed, spp or first sample."""
+    return graphs.key_of(_frame_static(cfg, width, height),
+                         _frame_args(scene, camera, pixel_ids, 0),
+                         _frame_carry(pixel_ids, 0))[0]
 
 
 @torch.no_grad()

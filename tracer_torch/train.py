@@ -192,32 +192,35 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
     Where the graph rule holds (`cache.active(pixel_ids, cfg, mesh)`: CUDA
     tensors, the kernels on, outside `disabled()`, not over a gloo mesh;
     every scene, the hand-written, the general and the plain autodiff
-    backward), the step's body (`apply_params`, the render, the loss,
-    `loss.backward()`, on a mesh the collectives, and the grad norm) is
-    one graph of `cache` (default `graphs.CACHE`, the counterpart of the
-    JAX package's jitted step), captured at the first call and replayed
-    from the second. Its key: the leaves' and target's
-    signature, `renderer.frame_key`'s (scene, camera, config, sizes,
-    samples, seed, host constants, the pixel ids' shape) and on a mesh its
-    shape and this rank's (dp, sp). The first call's warm-up runs the
-    collectives before the capture, so NCCL's communicator exists before
-    a captured collective. The gradients land in the graph's static
-    buffers and each leaf's `.grad` is set to a copy of its own. The
-    update stays eager: `opt.step()` after the replay, so the parameters,
-    the Adam state and the checkpoints are those of the eager step, bit
-    for bit.
+    backward), the step's body (the render, the loss, `loss.backward()`,
+    on a mesh the collectives, and the grad norm) is one graph of `cache`
+    (default `graphs.CACHE`, the counterpart of the JAX package's jitted
+    step), captured at the first call and replayed from the second. Its
+    key holds the config, width, height, samples and on a mesh its shape
+    and this rank's (dp, sp) by value, and its arguments by shape: the
+    scene and camera with the leaves in them, the leaves, the target, the
+    pixel ids, the seed word and the frame's tables (`graphs.key_of`). So
+    new leaves, a new scene of the same shapes or a new seed replay the
+    graph; the leaves, which the update writes in place, are copied in
+    at every step. The first call's warm-up runs the collectives before
+    the capture, so NCCL's communicator exists before a captured
+    collective. The gradients land in the graph's static buffers and each
+    leaf's `.grad` is set to a copy of its own. The update stays eager:
+    `opt.step()` after the replay, so the parameters, the Adam state and
+    the checkpoints are those of the eager step, bit for bit.
 
     Returns step_fn(params, scene, camera, pixel_ids, seed) ->
     (loss, grad_norm), both 0-d tensors on the scene's device; grad_norm
     is the global norm of the (reduced) gradients (optax.global_norm)."""
+    from tracer_torch.core import rng
     from tracer_torch.dist import sharding
-    from tracer_torch.render import graphs
-    from tracer_torch.render.renderer import frame_key, render_pixels
+    from tracer_torch.render import graphs, integrator
+    from tracer_torch.render.renderer import render_pixels
 
     target = _as_tensor(target).reshape(-1, 3)
     cache = graphs.CACHE if cache is None else cache
 
-    def body(s, c, leaves, tgt, pixel_ids, seed):
+    def body(s, c, leaves, tgt, pixel_ids, word, tables):
         """The loss, the grad norm and each leaf's gradient, from leaves
         whose `.grad` is None (inside a capture: allocated in the
         graph's pool)."""
@@ -226,12 +229,12 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
         with torch.enable_grad():
             if mesh is None:
                 img = render_pixels(s, c, cfg, width, height, pixel_ids,
-                                    nsamples, seed) / nsamples
+                                    nsamples, word, tables=tables) / nsamples
                 loss = torch.mean((img - tgt) ** 2)
             else:
                 img = sharding.render_pixels_sharded(
-                    s, c, cfg, width, height, pixel_ids, nsamples, seed,
-                    mesh)
+                    s, c, cfg, width, height, pixel_ids, nsamples, word,
+                    mesh, tables=tables)
                 nb = img.shape[0]
                 blk = tgt[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
                 loss = torch.mean((img - blk) ** 2) / mesh.shape["dp"]
@@ -251,18 +254,17 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
         leaves = [params[k] for k in sorted(params)]
         opt.zero_grad(set_to_none=True)
         s, c = apply_params(scene, camera, params)
+        args = (s, c, leaves, tgt, pixel_ids,
+                rng.seed_tensor(seed, pixel_ids.device),
+                integrator.prepare(s))
         if cache.active(pixel_ids, cfg, mesh):
-            key = (("step", graphs.signature((leaves, tgt)))
-                   + frame_key(s, c, cfg, width, height, pixel_ids,
-                               nsamples, seed)
-                   + sharding.mesh_key(mesh))
             loss, gnorm, grads = cache.call(
-                key, lambda pid: body(s, c, leaves, tgt, pid, seed),
-                (pixel_ids,), keep=(s, c, leaves, tgt))
+                ("step", cfg, width, height, nsamples)
+                + sharding.mesh_key(mesh), body, args)
             for p, g in zip(leaves, grads):
                 p.grad = g
         else:
-            loss, gnorm, _ = body(s, c, leaves, tgt, pixel_ids, seed)
+            loss, gnorm, _ = body(*args)
         opt.step()
         return loss, gnorm
 

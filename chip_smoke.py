@@ -3257,11 +3257,10 @@ def dist_rank(shapes, spp, reps, pod):
     16-spp Cornell frame (`render_pixels_sharded`) and `train_step`, each
     `reps` times after a warm-up, eagerly (`graphs.CACHE.disabled()`;
     `train_step` is eager anyway): walls, this rank's launches, the
-    seconds spent in collectives (`sharding.collective_spans`: the card
-    synchronised around each collective), rank 0's gathered film, the
-    step's result, and its gradients and grad norm (`step_grads`); then
-    the compiled frame and step against the eager ones
-    (`sharded_graphs`); with `pod`, rank 0's `render_image_multihost`
+    bytes its collectives send (`sharding.collective_spans`), rank 0's
+    gathered film, the step's result, and its gradients and grad norm
+    (`step_grads`); then the compiled frame and step against the eager
+    ones (`sharded_graphs`); with `pod`, rank 0's `render_image_multihost`
     frame on the host-major mesh (`make_pod_mesh()`)."""
     import torch.distributed as dist
 
@@ -3295,14 +3294,15 @@ def dist_rank(shapes, spp, reps, pod):
             return res
 
         blk, fwalls, flaunch = walls_of(frame, reps)
-        fcoll = sum(t for _, t in spans)
+        fcoll = sum(b for _, b in spans)
         film = multihost.gather_film(blk, mesh)
         res, swalls, slaunch = walls_of(step, reps)
         out[shape] = dict(
             coord=(mesh.dp_rank, mesh.sp_rank), frame_walls=fwalls,
-            frame_launches=flaunch, frame_coll_s=fcoll,
+            frame_launches=flaunch, frame_coll_bytes=fcoll,
             step_walls=swalls, step_launches=slaunch,
-            step_coll_s=sum(t for _, t in spans), step=step_result(*res),
+            step_coll_bytes=sum(b for _, b in spans),
+            step=step_result(*res),
             grads=step_grads(scene, cam, cfg, pid, target, spp, mesh),
             film=film if dist.get_rank() == 0 else None,
             compiled=sharded_graphs(scene, cam, cfg, pid, target, spp,
@@ -3445,10 +3445,10 @@ def dist_ranks_phase(sb, spp, n, backend, shapes, local_world_size,
                 card=r["card"], coord=x["coord"],
                 frame_s=spread(x["frame_walls"]),
                 frame_launches=x["frame_launches"],
-                frame_collective_s=f"{x['frame_coll_s']:.4f}",
+                frame_collective_bytes=x["frame_coll_bytes"],
                 step_s=spread(x["step_walls"]),
                 step_launches=x["step_launches"],
-                step_collective_s=f"{x['step_coll_s']:.4f}")
+                step_collective_bytes=x["step_coll_bytes"])
             c = x["compiled"]
             say("graph", case="sharded", variant=variant,
                 mesh=f"{shape[0]}x{shape[1]}", rank=r["rank"],

@@ -221,7 +221,9 @@ def test_collective_spans(groups, shape):
     """`sharding.collective_spans` records each collective a rank runs:
     the render's sum over sp, the film's gather over dp, the backward's
     none (the sp sum's backward is the identity) and the gradients' one
-    all_reduce over the mesh."""
+    all_reduce over the mesh, each with the bytes of the tensor it sends:
+    the rank's block for the sum and the gather, every leaf's gradient
+    for the last."""
     n_dp, n_sp = shape
     want = (["all_reduce"] * (n_sp > 1) + ["all_gather"] * (n_dp > 1)
             + ["all_reduce"] * (n_sp > 1) + ["all_reduce"])
@@ -229,7 +231,9 @@ def test_collective_spans(groups, shape):
         for name in ("unlit", "lit"):
             spans = r[name]["spans"]
             assert [op for op, _ in spans] == want, (name, spans)
-            assert all(s >= 0 for _, s in spans)
+            blk = r[name]["block"].nbytes
+            grads = sum(g.nbytes for g in r[name]["grads"].values())
+            assert [b for _, b in spans] == [blk] * (len(want) - 1) + [grads]
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from tracer_torch.core.config import RenderConfig
+from tracer_torch.core.spans import span
 from tracer_torch.dist.sharding import (RayMesh, collective, make_ray_mesh,
                                         sharded_sum)
 from tracer_torch.render.camera import Camera
@@ -139,15 +140,20 @@ def render_image_multihost(scene, camera: Camera, cfg: RenderConfig,
     """Full-frame render over the mesh -> gamma-corrected [H, W, 3] on
     every rank. The pixels are padded to a multiple of dp (the pad
     re-renders pixels 0, 1, ... and is dropped), and the sum over the
-    samples is divided and finished as `render` does (`film.to_image`)."""
+    samples is divided and finished as `render` does (`film.to_image`),
+    under `render`'s spans: `render.launch` (the sharded sum),
+    `render.copy_out` (the gather to the host) and `render.to_image`."""
     width = width or cfg.width
     height = height or cfg.height
     nsamples = nsamples or cfg.nsamples
     n_dp = mesh.shape["dp"]
     n_pix = width * height
     n_pad = ((n_pix + n_dp - 1) // n_dp) * n_dp
-    pids = torch.from_numpy(np.arange(n_pad, dtype=np.int32) % n_pix)
-    rad = sharded_sum(scene, camera, cfg, width, height,
-                      pids.to(scene.device), nsamples, cfg.seed, mesh)
-    film = gather_film(rad, mesh)[:n_pix]
-    return to_image(film / np.float32(nsamples), width, height)
+    with span("render.launch"):
+        pids = torch.from_numpy(np.arange(n_pad, dtype=np.int32) % n_pix)
+        rad = sharded_sum(scene, camera, cfg, width, height,
+                          pids.to(scene.device), nsamples, cfg.seed, mesh)
+    with span("render.copy_out"):
+        film = gather_film(rad, mesh)[:n_pix]
+    with span("render.to_image"):
+        return to_image(film / np.float32(nsamples), width, height)

@@ -26,24 +26,24 @@ Compiled: on the card the sharded frame (`sharded_sum` without grad, as
 (`renderer.render_frame`) and all-reduces the sp sum after it, and the
 sharded step (`train.make_step(mesh=)`) is a CUDA graph
 (`render/graphs.py`) that holds the render and the NCCL collectives; a
-gloo mesh stays eager (`RayMesh.capturable`). `collective_spans` times
-collectives on the eager route only: a captured collective cannot be
-synchronised around.
+gloo mesh stays eager (`RayMesh.capturable`). `collective_spans` lists
+the collectives a process issues, by name and bytes, without touching the
+card; their time is the NCCL kernels' in a `torch.profiler` trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from tracer_torch.core.config import RenderConfig
+from tracer_torch.core.spans import span
 from tracer_torch.render.camera import Camera
-from tracer_torch.render import graphs
+from tracer_torch.render import graphs, integrator
 from tracer_torch.render.renderer import render_frame, render_pixels
 
 
@@ -112,11 +112,12 @@ _SPANS: Optional[list] = None   # set by `collective_spans`
 
 @contextlib.contextmanager
 def collective_spans():
-    """Record each collective this process runs inside the block as
-    (name, seconds) in the list it yields. A CUDA tensor's card is
-    synchronised before and after each collective, so a span is the
-    collective's own time and the run loses its overlap: for measurement
-    only. Outside the block a collective costs one test of a global."""
+    """Record each collective this process issues inside the block as
+    (op name, bytes of the tensor it sends) in the list it yields. It
+    reads no clock and waits for nothing, so it leaves the overlap it
+    observes as it is; a captured graph's collectives are recorded where
+    the host issues them (the warm-up and the capture), not at a replay.
+    Outside the block a collective costs one test of a global."""
     global _SPANS
     prev, _SPANS = _SPANS, []
     try:
@@ -127,24 +128,12 @@ def collective_spans():
 
 def collective(op, tensor, *args, **kwargs):
     """`op(tensor, *args, **kwargs)` (a torch.distributed collective),
-    timed into `collective_spans`' list when one is open. A span
-    synchronises the card, which a capture refuses: time collectives on
-    the eager route (`graphs.CACHE.disabled()`)."""
-    if _SPANS is None:
-        return op(tensor, *args, **kwargs)
-    cuda = (tensor[0] if isinstance(tensor, list) else tensor).is_cuda
-    if cuda and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("collective_spans: a captured collective cannot "
-                           "be timed; run the route inside "
-                           "graphs.CACHE.disabled()")
-    if cuda:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = op(tensor, *args, **kwargs)
-    if cuda:
-        torch.cuda.synchronize()
-    _SPANS.append((op.__name__, time.perf_counter() - t0))
-    return out
+    recorded in `collective_spans`' list when one is open (an all_gather's
+    `tensor` is its list of outputs, each the size of what it sends)."""
+    if _SPANS is not None:
+        t = tensor[0] if isinstance(tensor, list) else tensor
+        _SPANS.append((op.__name__, t.numel() * t.element_size()))
+    return op(tensor, *args, **kwargs)
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -202,6 +191,9 @@ def sharded_sum(scene, camera: Camera, cfg: RenderConfig, width: int,
     first = mesh.sp_rank * k
     pids = pixel_ids[mesh.dp_rank * nb:(mesh.dp_rank + 1) * nb]
     if torch.is_grad_enabled() or not graphs.CACHE.active(pids, cfg, mesh):
+        if tables is None:
+            with span("render.prepare"):
+                tables = integrator.prepare(scene)
         rad = render_pixels(scene, camera, cfg, width, height, pids, k, seed,
                             first_sample=first, tables=tables)
     else:

@@ -75,6 +75,11 @@ second call on.
 - **A failed capture raises** the body's error (a read of the card inside
   the body is refused by the capture); nothing is cached and there is no
   eager fallback.
+- **Spans** (`core/spans.py`, ranges in a `torch.profiler` trace): a
+  capture's `graph.warmup` and `graph.capture` (with the instantiation),
+  a call's `graph.copy_in` and `graph.replay` (all its replays, one
+  span), each around the host code that enqueues them, never inside a
+  captured body.
 - **Size.** At most `max_graphs` graphs (8 by default), least recently
   used first out; an evicted graph's pool goes back to the card. A
   16-spp protocol step's pool holds about what the step's peak does
@@ -93,6 +98,7 @@ from typing import Callable, Optional
 
 import torch
 
+from tracer_torch.core.spans import span
 from tracer_torch.kernels import fold as kfold
 from tracer_torch.kernels import intersect as kintersect
 from tracer_torch.kernels import rowsum as krowsum
@@ -345,9 +351,11 @@ class GraphCache:
             self._graphs.move_to_end(full)
             g.replays += 1
             todo = steps
-        g.copy_in(unique, carry)
-        for _ in range(todo):
-            g.graph.replay()
+        with span("graph.copy_in"):
+            g.copy_in(unique, carry)
+        with span("graph.replay"):
+            for _ in range(todo):
+                g.graph.replay()
         g.runs += todo
         for k, n in g.launches.items():
             COUNTED[k].LAUNCHES += n * todo
@@ -357,7 +365,8 @@ class GraphCache:
         """The warm-up (one step on the caller's tensors, whose result it
         returns), then the capture on static copies, cached as `full`."""
         t0 = time.perf_counter()
-        out = self.backend.warm_up(body, (*args, *carry))
+        with span("graph.warmup"):
+            out = self.backend.warm_up(body, (*args, *carry))
         warm_s = time.perf_counter() - t0
         made = {}
 
@@ -371,8 +380,9 @@ class GraphCache:
         s_carry = tuple(c.detach().clone() for c in carry)
         before = launch_counts()
         try:
-            graph, outputs, times, pool = self.backend.capture(
-                body, (*s_args, *s_carry))
+            with span("graph.capture"):
+                graph, outputs, times, pool = self.backend.capture(
+                    body, (*s_args, *s_carry))
         finally:
             # the capture launched nothing: take its counts back
             grew = {k: n - before[k] for k, n in launch_counts().items()}

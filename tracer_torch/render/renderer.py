@@ -20,6 +20,11 @@ the same shapes replays it. A frame has at most two chunk shapes and a
 tiled render at most four tile shapes, each one graph. On the CPU, and
 with `kernels="off"`, `render_frame` is the eager body. `render_pixels`
 stays the eager, differentiable function.
+
+Spans (`core/spans.py`, ranges in a `torch.profiler` trace): each chunk's
+`render.launch` (its pixel ids and `render_frame`, with the frame's
+tables and carry in `render.prepare`), `render.copy_out` (the sum to the
+host, with the wait for its samples) and the frame's `render.to_image`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
+from tracer_torch.core.spans import span
 from tracer_torch.render import graphs, integrator
 from tracer_torch.render.camera import Camera, generate_rays
 from tracer_torch.render.film import TileManifest, to_image
@@ -127,8 +133,11 @@ def render_frame(scene, camera: Camera, cfg: RenderConfig, width: int,
     cache = graphs.CACHE if cache is None else cache
     with torch.no_grad():
         if not cache.active(pixel_ids, cfg):
+            with span("render.prepare"):
+                tables = integrator.prepare(scene)
             return render_pixels(scene, camera, cfg, width, height,
-                                 pixel_ids, nsamples, seed, first_sample)
+                                 pixel_ids, nsamples, seed, first_sample,
+                                 tables=tables)
 
         def sample(scene, camera, pid, word, tables, acc, idx):
             acc += _render_batch(scene, camera, cfg, width, height, pid,
@@ -136,10 +145,11 @@ def render_frame(scene, camera: Camera, cfg: RenderConfig, width: int,
             idx += 1
             return acc
 
-        return cache.call(_frame_static(cfg, width, height), sample,
-                          _frame_args(scene, camera, pixel_ids, seed),
-                          carry=_frame_carry(pixel_ids, first_sample),
-                          steps=nsamples)
+        with span("render.prepare"):
+            args = _frame_args(scene, camera, pixel_ids, seed)
+            carry = _frame_carry(pixel_ids, first_sample)
+        return cache.call(_frame_static(cfg, width, height), sample, args,
+                          carry=carry, steps=nsamples)
 
 
 def frame_key(scene, camera: Camera, cfg: RenderConfig, width: int,
@@ -179,13 +189,16 @@ def render(scene, camera: Camera, cfg: RenderConfig, width=None,
     film = np.zeros((n_pix, 3), np.float32)
     for lo in range(0, n_pix, chunk):
         hi = min(lo + chunk, n_pix)
-        pid = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        rad = render_frame(scene, camera, cfg, width, height, pid,
-                           nsamples, cfg.seed)
-        film[lo:hi] = rad.cpu().numpy()
+        with span("render.launch"):
+            pid = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            rad = render_frame(scene, camera, cfg, width, height, pid,
+                               nsamples, cfg.seed)
+        with span("render.copy_out"):
+            film[lo:hi] = rad.cpu().numpy()
         if progress:
             print(f"  pixels {hi}/{n_pix}", flush=True)
-    return to_image(film / np.float32(nsamples), width, height)
+    with span("render.to_image"):
+        return to_image(film / np.float32(nsamples), width, height)
 
 
 def _render_tiled(scene, camera, cfg, width, height, nsamples, ckpt_dir,

@@ -209,10 +209,16 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
     `opt.step()` after the replay, so the parameters, the Adam state and
     the checkpoints are those of the eager step, bit for bit.
 
+    Spans (`core/spans.py`, ranges in a `torch.profiler` trace): a step's
+    `step.launch` (from `zero_grad` through the leaves' `.grad`, on either
+    route), inside it `step.prepare` (`apply_params`, the seed word and
+    the frame's tables), then `step.optimizer` (`opt.step()`).
+
     Returns step_fn(params, scene, camera, pixel_ids, seed) ->
     (loss, grad_norm), both 0-d tensors on the scene's device; grad_norm
     is the global norm of the (reduced) gradients (optax.global_norm)."""
     from tracer_torch.core import rng
+    from tracer_torch.core.spans import span
     from tracer_torch.dist import sharding
     from tracer_torch.render import graphs, integrator
     from tracer_torch.render.renderer import render_pixels
@@ -252,20 +258,23 @@ def make_step(opt, cfg: RenderConfig, target, width: int, height: int,
         nonlocal target
         target = tgt = target.to(pixel_ids.device)   # moved once
         leaves = [params[k] for k in sorted(params)]
-        opt.zero_grad(set_to_none=True)
-        s, c = apply_params(scene, camera, params)
-        args = (s, c, leaves, tgt, pixel_ids,
-                rng.seed_tensor(seed, pixel_ids.device),
-                integrator.prepare(s))
-        if cache.active(pixel_ids, cfg, mesh):
-            loss, gnorm, grads = cache.call(
-                ("step", cfg, width, height, nsamples)
-                + sharding.mesh_key(mesh), body, args)
-            for p, g in zip(leaves, grads):
-                p.grad = g
-        else:
-            loss, gnorm, _ = body(*args)
-        opt.step()
+        with span("step.launch"):
+            opt.zero_grad(set_to_none=True)
+            with span("step.prepare"):
+                s, c = apply_params(scene, camera, params)
+                args = (s, c, leaves, tgt, pixel_ids,
+                        rng.seed_tensor(seed, pixel_ids.device),
+                        integrator.prepare(s))
+            if cache.active(pixel_ids, cfg, mesh):
+                loss, gnorm, grads = cache.call(
+                    ("step", cfg, width, height, nsamples)
+                    + sharding.mesh_key(mesh), body, args)
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+            else:
+                loss, gnorm, _ = body(*args)
+        with span("step.optimizer"):
+            opt.step()
         return loss, gnorm
 
     return step_fn

@@ -15,8 +15,12 @@ bounces of both boxes, with each bounce's live share and the byte and
 operation bounds of the slim record and the in-place state), renders the
 Cornell box at 850x480, 16 spp, 6 bounces through
 `tracer_torch.render.renderer.render`, checks that the render went through
-the forward kernels, and repeats the checks on a Cornell whose textures and
-normal maps are seeded arrays (the pair-atlas branch). Then the backward:
+the forward kernels and the finish kernel, and repeats the checks on a
+Cornell whose textures and normal maps are seeded arrays (the pair-atlas
+branch). The finish kernel (`kernels/finish.py`) against numpy's finish
+on the Cornell frame's film and on a film of special values, with its
+time, its bound, the plain time and the image's pinned and pageable
+copies (`[finish]`). Then the backward:
 the record variants of the forward kernels, the bounce adjoint (B3, with
 the row-cotangent tables it adds to) and the texel fold (B4, on the real
 record and on all-zero, skewed, non-finite, empty and odd-sized streams)
@@ -202,6 +206,7 @@ from tracer_torch.core import rng  # noqa: E402
 from tracer_torch.core.config import RenderConfig  # noqa: E402
 from tracer_torch.io.ppm import write_ppm  # noqa: E402
 from tracer_torch.kernels import _build  # noqa: E402
+from tracer_torch.kernels import finish as kfinish  # noqa: E402
 from tracer_torch.kernels import fold as kfold  # noqa: E402
 from tracer_torch.kernels import intersect as kintersect  # noqa: E402
 from tracer_torch.kernels import rowsum as krowsum  # noqa: E402
@@ -213,12 +218,13 @@ from tracer_torch.render import graphs, integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
 from tracer_torch.render.camera import (  # noqa: E402
     default_camera, look_at_quaternion)
-from tracer_torch.render.film import TileManifest  # noqa: E402
+from tracer_torch.render.film import TileManifest, to_image  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
 from tracer_torch.testing import (  # noqa: E402
-    FULL, fill_cornell_textures, flamingo_pond_standin, flamingo_standin,
-    mesh_grid, raccoon_standin, rt_weekend_standin, tiled_wall)
+    FULL, fill_cornell_textures, finish_film, flamingo_pond_standin,
+    flamingo_standin, mesh_grid, raccoon_standin, rt_weekend_standin,
+    tiled_wall)
 
 W, H, SPP, BOUNCES = 850, 480, 16, 6
 PAIR_SPP = 2
@@ -947,7 +953,8 @@ def protocol_grads(scene, cam, cfg, spp, trainable):
 
 KERNEL_MODULES = dict(first_hits=kintersect, shade_scatter=kshade,
                       bounce_bwd=kbwd, sorted_fold=kfold,
-                      traverse=ktraverse, shadow=kshadow, row_sum=krowsum)
+                      traverse=ktraverse, shadow=kshadow, row_sum=krowsum,
+                      finish=kfinish)
 
 
 def reset_launches():
@@ -959,12 +966,14 @@ def launch_counts(*names):
     return {k: KERNEL_MODULES[k].LAUNCHES for k in names}
 
 
-def call_launches(scene, cfg, spp, trainable=()):
+def call_launches(scene, cfg, spp, trainable=(), frames=0):
     """Kernel launches of one frame of `spp` samples on the hand-written
     route (with `trainable`, of one protocol step): each sample runs
     every kernel of its route once a bounce, B3 once a bounce in the
     backward, B4 once a sample where tex_data trains and the atlas has
-    texel rows to fold onto. Kernels not launched are left out."""
+    texel rows to fold onto; the finish once for each of `frames` images
+    made (`renderer.render`; `render_frame` and the steps make none).
+    Kernels not launched are left out."""
     n = spp * cfg.max_bounces
     out = dict(first_hits=n,
                shade_scatter=n if integrator._fused(scene, cfg) else 0,
@@ -972,7 +981,8 @@ def call_launches(scene, cfg, spp, trainable=()):
                sorted_fold=spp if ("tex_data" in trainable
                                    and scene.tex_data.shape[0] > 1) else 0,
                traverse=n if scene.mesh_mat.shape[0] > 0 else 0,
-               shadow=n if scene.light_pos.shape[0] > 0 else 0)
+               shadow=n if scene.light_pos.shape[0] > 0 else 0,
+               finish=frames)
     return {k: v for k, v in out.items() if v}
 
 
@@ -1096,9 +1106,10 @@ def profile_phase(label, sb, trainable=TRAINABLE):
 
 
 def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
-    """The render through the normal entry point, with launch counts, two
-    more frames (mesh scenes: the frame time's spread), then the 1-spp
-    radiance against the plain path on the card. `plain_frame`: also time
+    """The render through the normal entry point, with launch counts (the
+    finish kernel once a frame), two more frames (mesh scenes: the frame
+    time's spread), then the 1-spp radiance against the plain path on the
+    card. `plain_frame`: also time
     the plain path's whole frame (the walk's and the shadows' plain
     versions make that minutes long on the mesh scenes, whose plain time
     is given at 1 spp instead). `cfg_kw`: more RenderConfig fields (the
@@ -1117,7 +1128,7 @@ def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
     launches = launched(*KERNEL_MODULES)
     meshes = scene.mesh_mat.shape[0] > 0
     fused = integrator._fused(scene, cfg)
-    expect = call_launches(scene, cfg, spp)
+    expect = call_launches(scene, cfg, spp, frames=1)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
@@ -1156,6 +1167,84 @@ def render_phase(label, sb, spp, plain_frame=True, **cfg_kw):
         radiance_max_abs_err=f"{err:.3g}", mean=f"{img.mean():.6f}",
         launches=launches, ppm=out)
     return launches
+
+
+def walls_ms(walls):
+    """Median, least and most of sorted walls in seconds, as ms."""
+    return dict(median=f"{walls[len(walls) // 2] * 1e3:.4f}",
+                min=f"{walls[0] * 1e3:.4f}", max=f"{walls[-1] * 1e3:.4f}")
+
+
+def finish_phase(sb, stats, reps=50):
+    """The frame's finish (`kernels/finish.py`, `csrc/finish.cu`) against
+    its plain version (`film.to_image` after `film / np.float32(n)`) at
+    850x480: on the Cornell frame's 16-spp film from `render_frame`, and
+    on a film with every case the finish meets (`testing.finish_film`:
+    zeros of both signs, negatives, values above 1, infinities, NaN,
+    denormals), with gamma and without. NaN must lie exactly where numpy
+    has NaN; elsewhere (zeros compared without their sign) the kernel must
+    be within 2 ulp of numpy with gamma (CUDA's powf against numpy's
+    float32 power) and equal without it. Then, on the Cornell film: the
+    kernel's device time against its byte bound, its time with the
+    wrapper's host work, the plain version's time (the film's pageable
+    copy and numpy's finish), and, in turns, the image's copy to the host
+    into pinned memory of its own (as `renderer.finish_frame` copies it)
+    beside a pageable `.cpu().numpy()`, and the whole `finish_frame`."""
+    scene = compile_scene(sb, device=DEV)
+    cam = default_camera(W / H, device=DEV)
+    cfg = RenderConfig(nsamples=SPP, width=W, height=H, max_bounces=BOUNCES)
+    pid = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        film = renderer.render_frame(scene, cam, cfg, W, H, pid, SPP,
+                                     cfg.seed)
+    special = torch.from_numpy(finish_film(W * H, seed=1)).to(DEV)
+    ulps, err = {}, 0.0
+    for name, f, n in (("cornell", film, SPP), ("special", special, 20)):
+        mean = f.cpu().numpy() / np.float32(n)
+        for gamma in (True, False):
+            want = to_image(mean, W * H, 1, gamma).reshape(-1)
+            got = kfinish.finish(f, n, gamma).cpu().numpy().reshape(-1)
+            nan = np.isnan(want)
+            if not np.array_equal(np.isnan(got), nan):
+                raise AssertionError(f"finish {name} gamma={gamma}: NaN "
+                                     f"where numpy has none, or none "
+                                     f"where it has")
+            a, b = got[~nan] + np.float32(0), want[~nan] + np.float32(0)
+            gap = int(np.abs(a.view(np.int32).astype(np.int64)
+                             - b.view(np.int32).astype(np.int64)).max())
+            if gap > (2 if gamma else 0):
+                raise AssertionError(f"finish {name} gamma={gamma}: {gap} "
+                                     f"ulp from numpy")
+            ulps[name + ("_gamma" if gamma else "")] = gap
+            err = max(err, float(np.abs(a - b).max()))
+    if float((film == 0).float().mean()) == 0.0:
+        raise AssertionError("finish: the Cornell film has no zeros")
+    img = kfinish.finish(film, SPP)
+    ms = timed(lambda: kfinish.finish(film, SPP), 200)
+    pms = timed(lambda: to_image(film.cpu().numpy() / np.float32(SPP), W, H),
+                5)
+    bms = bound_ms(nbytes(film, img))
+
+    def pinned():
+        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        host.copy_(img, non_blocking=True)
+        torch.cuda.current_stream(DEV).synchronize()
+        return host.numpy()
+
+    walls = in_turns(dict(
+        pinned=pinned, pageable=lambda: img.cpu().numpy(),
+        finish_frame=lambda: renderer.finish_frame(film, SPP, W, H)), reps)
+    say("finish", scene="cornell", size=f"{W}x{H}", spp=SPP,
+        film_zero_share=f"{float((film == 0).float().mean()):.4f}",
+        ulp_max=ulps, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
+        device_ms=device_ms(lambda: kfinish.finish(film, SPP), 200,
+                            "finish_kernel"),
+        host_ms=enqueue_ms(lambda: kfinish.finish(film, SPP), 200),
+        bound_ms=f"{bms:.4f}", plain_ms=f"{pms:.4f}",
+        copy_pinned_ms=walls_ms(walls["pinned"]),
+        copy_pageable_ms=walls_ms(walls["pageable"]),
+        finish_frame_ms=walls_ms(walls["finish_frame"]), reps=reps)
+    stats["finish"].append(Rec(err, ms, pms, bms))
 
 
 def sky_uv_phase(label, scene, stats):
@@ -2792,8 +2881,9 @@ def graph_phase(flat_sb, pair_sb, reps=3):
     img = tiled()
     n_tiles = TileManifest(W, H, 128, tempfile.mkdtemp()).n_tiles
     tiled_launches = launched(*KERNEL_MODULES)
-    if tiled_launches != {k: v * n_tiles for k, v in
-                          call_launches(flat, cfg, SPP).items()}:
+    if tiled_launches != {**{k: v * n_tiles for k, v in
+                             call_launches(flat, cfg, SPP).items()},
+                          "finish": 1}:
         raise AssertionError(f"graph tiled: launches {tiled_launches}")
     if not np.array_equal(img, direct) or cache.captures - n0 != 4:
         raise AssertionError(f"graph tiled: image differs from the direct "
@@ -3295,7 +3385,7 @@ def dist_rank(shapes, spp, reps, pod):
 
         blk, fwalls, flaunch = walls_of(frame, reps)
         fcoll = sum(b for _, b in spans)
-        film = multihost.gather_film(blk, mesh)
+        film = multihost.gather_film(blk, mesh).cpu().numpy()
         res, swalls, slaunch = walls_of(step, reps)
         out[shape] = dict(
             coord=(mesh.dp_rank, mesh.sp_rank), frame_walls=fwalls,
@@ -3870,8 +3960,9 @@ def main(dist_only=False, bench_only=False, graph_only=False):
         raise AssertionError("textured Cornell did not build a pair atlas")
     kernel_phase("cornell", flat_scene, stats, range(BOUNCES))
     kernel_phase("cornell_textured", pair_scene, stats, range(BOUNCES))
-    render_phase("cornell", flat_sb, SPP)
+    launches["finish"] = render_phase("cornell", flat_sb, SPP)["finish"]
     render_phase("cornell_textured", pair_sb, PAIR_SPP)
+    finish_phase(flat_sb, stats)
 
     tf32_phase()
     record_phase(pair_scene, stats)
@@ -4025,6 +4116,16 @@ def main(dist_only=False, bench_only=False, graph_only=False):
                  "max_abs_err": max(r.err for _, r in named), "ms": rec.ms,
                  "plain_ms": rec.plain_ms, "bound_ms": rec.bound_ms,
                  "bound_by": rec.bound_by, "library_ms": rec.library_ms})
+    # the finish: the Cornell frame's film, 1 launch a `render` frame
+    rec = stats["finish"][0]
+    rows.append({"name": "finish", "route": "cuda",
+                 "source": "tracer_torch/kernels/csrc/finish.cu",
+                 "replaces": "tracer_torch/render/film.py::to_image (numpy "
+                             "on the host; no Pallas kernel)",
+                 "launches": launches["finish"], "max_abs_err": rec.err,
+                 "ms": rec.ms, "plain_ms": rec.plain_ms,
+                 "bound_ms": rec.bound_ms, "bound_by": rec.bound_by,
+                 "library_ms": rec.library_ms})
     say("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": rows}))

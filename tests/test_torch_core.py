@@ -125,6 +125,36 @@ def test_gamma_correct():
         to_image(x, 1, 5000).reshape(5000, 3), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("nsamples", [1, 20])
+def test_finish_is_the_jax_finish(nsamples):
+    """The port's plain finish of a host film (`renderer.finish_frame`:
+    `film.to_image` after `film / np.float32(nsamples)`), which the finish
+    kernel is held to on the card, against the JAX package's (`film /
+    np.float32(nsamples)`, `gamma_correct`, then `np.clip` to [0, 1]) on
+    a film with zeros of both signs, negatives, values above 1,
+    infinities, NaN and denormals: NaN where JAX has NaN, else within one
+    ulp (zeros compared without their sign), except where the mean is a
+    denormal, which XLA on the CPU flushes to zero before its power: there
+    both images are below 1e-17."""
+    from tracer_torch.render.renderer import finish_frame
+    from tracer_torch.testing import finish_film
+    s = finish_film(4096, seed=nsamples)
+    mean = s / np.float32(nsamples)
+    want = np.clip(np.asarray(jgamma(jnp.asarray(mean))), 0.0, 1.0)
+    got = finish_frame(torch.from_numpy(s), nsamples, 64, 64)
+    want, got, mean = (a.reshape(-1) for a in (want, got, mean))
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    tiny = (np.abs(mean) < np.finfo(np.float32).tiny) & (mean != 0)
+    assert tiny.any() and np.all(got[tiny] < 1e-17) and np.all(
+        want[tiny] < 1e-17)
+    keep = ~nan & ~tiny
+    gap = np.abs((got[keep] + np.float32(0)).view(np.int32).astype(np.int64)
+                 - (want[keep] + np.float32(0)).view(np.int32)
+                 .astype(np.int64))
+    assert gap.max() <= 1, gap.max()
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"

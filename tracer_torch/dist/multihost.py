@@ -35,7 +35,7 @@ from tracer_torch.core.spans import span
 from tracer_torch.dist.sharding import (RayMesh, collective, make_ray_mesh,
                                         sharded_sum)
 from tracer_torch.render.camera import Camera
-from tracer_torch.render.film import to_image
+from tracer_torch.render.renderer import finish_frame
 
 
 def initialize(coordinator: Optional[str] = None,
@@ -117,19 +117,21 @@ def make_pod_mesh(n_sp: Optional[int] = None) -> RayMesh:
     return make_ray_mesh(n_dp=world // n_sp, n_sp=n_sp)
 
 
-def gather_film(rad, mesh: RayMesh) -> np.ndarray:
-    """The full [N, 3] film on EVERY rank as numpy, from each rank's dp
-    block (an all_gather over the dp group; the blocks come in dp order).
-    Gloo gathers host copies."""
+def gather_film(rad, mesh: RayMesh) -> torch.Tensor:
+    """The full [N, 3] film on EVERY rank, from each rank's dp block (an
+    all_gather over the dp group; the blocks come in dp order), on
+    `rad`'s device. Gloo gathers host copies, and its film goes back to
+    that device, so a CUDA scene's film is finished on the card whatever
+    the backend."""
     x = rad.detach()
     if mesh.shape["dp"] == 1:
-        return x.cpu().numpy()
+        return x
     if dist.get_backend(mesh.dp_group) == "gloo":
         x = x.cpu()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape["dp"])]
     collective(dist.all_gather, parts, x, group=mesh.dp_group)
-    return torch.cat(parts).cpu().numpy()
+    return torch.cat(parts).to(rad.device)
 
 
 @torch.no_grad()
@@ -139,10 +141,14 @@ def render_image_multihost(scene, camera: Camera, cfg: RenderConfig,
                            nsamples: Optional[int] = None) -> np.ndarray:
     """Full-frame render over the mesh -> gamma-corrected [H, W, 3] on
     every rank. The pixels are padded to a multiple of dp (the pad
-    re-renders pixels 0, 1, ... and is dropped), and the sum over the
-    samples is divided and finished as `render` does (`film.to_image`),
-    under `render`'s spans: `render.launch` (the sharded sum),
-    `render.copy_out` (the gather to the host) and `render.to_image`."""
+    re-renders pixels 0, 1, ... and is dropped), and the film, the sum
+    over the samples, is finished as `render` finishes it
+    (`renderer.finish_frame`): a CUDA scene's on the card before it
+    leaves the card (the sharded sum itself at dp = 1, else its
+    all-gather), then one copy of the image to the host; a CPU scene's
+    by `film.to_image`. Under `render`'s spans: `render.launch`
+    (the sharded sum), `render.copy_out` around the gather where dp > 1,
+    then the finish's `render.to_image` and `render.copy_out`."""
     width = width or cfg.width
     height = height or cfg.height
     nsamples = nsamples or cfg.nsamples
@@ -153,7 +159,8 @@ def render_image_multihost(scene, camera: Camera, cfg: RenderConfig,
         pids = torch.from_numpy(np.arange(n_pad, dtype=np.int32) % n_pix)
         rad = sharded_sum(scene, camera, cfg, width, height,
                           pids.to(scene.device), nsamples, cfg.seed, mesh)
-    with span("render.copy_out"):
-        film = gather_film(rad, mesh)[:n_pix]
-    with span("render.to_image"):
-        return to_image(film / np.float32(nsamples), width, height)
+    film = rad
+    if n_dp > 1:
+        with span("render.copy_out"):
+            film = gather_film(rad, mesh)
+    return finish_frame(film[:n_pix], nsamples, width, height, cfg.kernels)

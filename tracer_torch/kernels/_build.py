@@ -99,5 +99,7 @@ def library() -> ctypes.CDLL:
     lib.tt_shadow.restype = ctypes.c_int
     lib.tt_row_sum.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.tt_row_sum.restype = ctypes.c_int
+    lib.tt_finish.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.tt_finish.restype = ctypes.c_int
     _LIB = lib
     return _LIB

@@ -3,8 +3,9 @@ feature): a Cornell box whose image textures and normal maps are seeded
 uint8 arrays instead of the reference's PPM assets, procedural
 stand-in meshes in place of the reference's OFF meshes, seeded skyboxes
 and sphere textures (`fill_sky`, `rt_weekend_standin`,
-`raccoon_standin`), and scenes past the kernels' table and mesh-count
-limits (`tiled_wall`, `mesh_grid`).
+`raccoon_standin`), scenes past the kernels' table and mesh-count
+limits (`tiled_wall`, `mesh_grid`), and a film's sum with every case the
+frame's finish meets (`finish_film`).
 
 The Cornell builder loads two textures (brick, sand) and three normal maps
 (brick, floor, water — the last unused). `fill_cornell_textures` fills those
@@ -73,6 +74,22 @@ def seeded_image(hw, seed: int = 0):
           for _ in range(3)]
     img = np.stack(ch, -1) + rs.uniform(-0.1, 0.1, hw + (3,))
     return (255.0 * np.clip(img, 0.0, 1.0)).astype(np.uint8)
+
+
+def finish_film(n: int, seed: int = 0) -> np.ndarray:
+    """A film's sum [n, 3] f32 with every case the finish meets: zeros of
+    both signs, negatives, values above the clamp, infinities, NaN, tiny
+    and denormal values, then seeded positive values spread over 40
+    decades."""
+    special = np.array([0.0, -0.0, -1.0, -1e-30, 1.0, 20.0, 21.0, 1e30,
+                        np.inf, -np.inf, np.nan, -np.nan, 1e-38, 1e-45,
+                        3e-39, 0.5], np.float32)
+    rs = np.random.RandomState(seed)
+    spread = np.concatenate([
+        rs.uniform(0.0, 40.0, 3 * n),
+        np.exp(rs.uniform(np.log(1e-40), np.log(40.0), 3 * n))])
+    x = np.concatenate([special, rs.permutation(spread).astype(np.float32)])
+    return x[:3 * n].reshape(n, 3)
 
 
 def fill_sky(sb, hw=SKY_HW, seed: int = 0):
@@ -369,7 +386,7 @@ def dist_rank(shapes, nsamples: int, extra: bool = False, ckpt_dir=None):
                     blk = sharding.render_pixels_sharded(
                         scene, cam, dist_config(), DIST_W, DIST_H, pids,
                         nsamples, 0, mesh)
-                film = multihost.gather_film(blk, mesh)
+                film = multihost.gather_film(blk, mesh).cpu().numpy()
                 _, grads = dist_grads(scene, cam, nsamples, mesh)
             res[name] = dict(block=blk.numpy(), film=film, grads=grads,
                              spans=spans)

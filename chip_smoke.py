@@ -20,7 +20,9 @@ Cornell whose textures and normal maps are seeded arrays (the pair-atlas
 branch). The finish kernel (`kernels/finish.py`) against numpy's finish
 on the Cornell frame's film and on a film of special values, with its
 time, its bound, the plain time and the image's pinned and pageable
-copies (`[finish]`). Then the backward:
+copies (`[finish]`). The camera kernel (`kernels/camera.py`) against the
+torch chain of `renderer.camera_batch`, bit for bit, with its time, its
+bound and the chain's time and launches (`[camera]`). Then the backward:
 the record variants of the forward kernels, the bounce adjoint (B3, with
 the row-cotangent tables it adds to) and the texel fold (B4, on the real
 record and on all-zero, skewed, non-finite, empty and odd-sized streams)
@@ -206,6 +208,7 @@ from tracer_torch.core import rng  # noqa: E402
 from tracer_torch.core.config import RenderConfig  # noqa: E402
 from tracer_torch.io.ppm import write_ppm  # noqa: E402
 from tracer_torch.kernels import _build  # noqa: E402
+from tracer_torch.kernels import camera as kcamera  # noqa: E402
 from tracer_torch.kernels import finish as kfinish  # noqa: E402
 from tracer_torch.kernels import fold as kfold  # noqa: E402
 from tracer_torch.kernels import intersect as kintersect  # noqa: E402
@@ -217,7 +220,7 @@ from tracer_torch.kernels import traverse as ktraverse  # noqa: E402
 from tracer_torch.render import graphs, integrator, renderer  # noqa: E402
 from tracer_torch.render import replay_bwd  # noqa: E402
 from tracer_torch.render.camera import (  # noqa: E402
-    default_camera, look_at_quaternion)
+    Camera, default_camera, look_at_quaternion)
 from tracer_torch.render.film import TileManifest, to_image  # noqa: E402
 from tracer_torch.scene.device import compile_scene  # noqa: E402
 from tracer_torch.scenes import zoo  # noqa: E402
@@ -954,7 +957,13 @@ def protocol_grads(scene, cam, cfg, spp, trainable):
 KERNEL_MODULES = dict(first_hits=kintersect, shade_scatter=kshade,
                       bounce_bwd=kbwd, sorted_fold=kfold,
                       traverse=ktraverse, shadow=kshadow, row_sum=krowsum,
-                      finish=kfinish)
+                      finish=kfinish, camera=kcamera)
+
+
+def camera_launches(spp, trainable):
+    """The camera kernel's launches of `spp` samples: one a sample, none
+    where a camera field trains (the torch chain makes those rays)."""
+    return 0 if any(t.startswith("cam_") for t in trainable) else spp
 
 
 def reset_launches():
@@ -972,8 +981,9 @@ def call_launches(scene, cfg, spp, trainable=(), frames=0):
     every kernel of its route once a bounce, B3 once a bounce in the
     backward, B4 once a sample where tex_data trains and the atlas has
     texel rows to fold onto; the finish once for each of `frames` images
-    made (`renderer.render`; `render_frame` and the steps make none).
-    Kernels not launched are left out."""
+    made (`renderer.render`; `render_frame` and the steps make none); the
+    camera once a sample (`camera_launches`). Kernels not launched are
+    left out."""
     n = spp * cfg.max_bounces
     out = dict(first_hits=n,
                shade_scatter=n if integrator._fused(scene, cfg) else 0,
@@ -982,7 +992,7 @@ def call_launches(scene, cfg, spp, trainable=(), frames=0):
                                    and scene.tex_data.shape[0] > 1) else 0,
                traverse=n if scene.mesh_mat.shape[0] > 0 else 0,
                shadow=n if scene.light_pos.shape[0] > 0 else 0,
-               finish=frames)
+               finish=frames, camera=camera_launches(spp, trainable))
     return {k: v for k, v in out.items() if v}
 
 
@@ -1247,6 +1257,92 @@ def finish_phase(sb, stats, reps=50):
     stats["finish"].append(Rec(err, ms, pms, bms))
 
 
+def float_bits(t):
+    """A float tensor's bits as int64 (NaN and the sign of zero kept)."""
+    return t.contiguous().view(torch.int32).to(torch.int64)
+
+
+def camera_phase(stats, reps=200):
+    """The camera kernel (`kernels/camera.py`, `csrc/camera.cu`) against
+    the torch chain of `renderer.camera_batch` (kernels="off") at 850x480:
+    the default camera and a turned one (a quaternion of length 1.07), all
+    pixels (int32 ids) and a 128x128 tile (int64 ids), seeds as ints and as
+    words on the card, sample indices as ints and 0-d tensors. The keys,
+    the jitter, the time, o and d must be the chain's bit for bit (the
+    line gives the mismatches and the largest ulp gap of each). Then, with
+    the seed word and sample index on the card as a compiled frame gives
+    them: the kernel's device time against its byte bound, its time with
+    the wrapper, the host's enqueue, and the chain's time and launches a
+    sample."""
+    f32 = dict(dtype=torch.float32, device=DEV)
+    eye = (1.4, 0.9, 5.2)
+    cams = dict(default=default_camera(W / H, device=DEV),
+                turned=Camera(torch.tensor(eye, **f32),
+                              look_at_quaternion(eye, (0.1, -0.2, 0.0),
+                                                 device=DEV) * 1.07,
+                              torch.tensor(38.5, **f32),
+                              torch.tensor(W / H, **f32)))
+    full = torch.arange(W * H, dtype=torch.int32, device=DEV)
+    x, y = torch.meshgrid(torch.arange(100, 228, device=DEV),
+                          torch.arange(64, 192, device=DEV), indexing="xy")
+    tile = (y * W + x).reshape(-1)
+    s_dev = torch.full((), 19, dtype=torch.int64, device=DEV)
+    names = ("keys", "jitter", "time", "o", "d")
+    mism, ulp, cases = dict.fromkeys(names, 0), dict.fromkeys(names, 0), 0
+    for cam in cams.values():
+        for pid in (full, tile):
+            for seed in (0, 2 ** 31 + 12_345):
+                for sample in (0, 7, s_dev):
+                    keys = rng.salted(rng.ray_keys(seed, pid), sample)
+                    jit = rng.uniform(rng.salted(keys, rng.PIXEL_JITTER),
+                                      (2,)).T
+                    o, d, tm, _ = renderer.camera_batch(cam, W, H, pid,
+                                                        sample, seed, "off")
+                    for sd in (seed, rng.seed_tensor(seed, DEV)):
+                        got = kcamera.camera_rays(cam, W, H, pid, sample, sd,
+                                                  jitter=True)
+                        pairs = dict(
+                            keys=(got[3], keys),
+                            jitter=(float_bits(got[4]), float_bits(jit)),
+                            time=(float_bits(got[2]), float_bits(tm)),
+                            o=(float_bits(torch.stack(got[0])),
+                               float_bits(torch.stack(o))),
+                            d=(float_bits(torch.stack(got[1])),
+                               float_bits(torch.stack(d))))
+                        for k, (a, b) in pairs.items():
+                            mism[k] += int((a != b).sum())
+                            ulp[k] = max(ulp[k], int((a - b).abs().max()))
+                        cases += 1
+    cam = cams["turned"]
+    word = rng.seed_tensor(2 ** 31 + 12_345, DEV)
+
+    def kernel():
+        return kcamera.camera_rays(cam, W, H, full, s_dev, word)
+
+    def chain():
+        return renderer.camera_batch(cam, W, H, full, s_dev, word, "off")
+
+    out = kernel()
+    bms = bound_ms(nbytes(full, out[3], out[0], out[1], out[2]))
+    ms = timed(kernel, reps)
+    pms = timed(chain, 20)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain()
+        torch.cuda.synchronize()
+    chain_launches = sum(e.count for e in prof.key_averages()
+                         if e.self_device_time_total > 0)
+    say("camera", size=f"{W}x{H}", cases=cases, mismatches=mism,
+        ulp_max=ulp, ms=f"{ms:.4f}",
+        device_ms=device_ms(kernel, reps, "camera_kernel"),
+        host_ms=enqueue_ms(kernel, reps), bound_ms=f"{bms:.4f}",
+        plain_ms=f"{pms:.4f}", plain_launches=chain_launches)
+    if any(mism.values()):
+        raise AssertionError(f"camera: the kernel is not the torch chain "
+                             f"bit for bit: {mism}, ulp {ulp}")
+    stats["camera"].append(Rec(0.0, ms, pms, bms))
+
+
 def sky_uv_phase(label, scene, stats):
     """B1 with the sphere-UV texel index (`sphere_tex`, tex_out 1 and 2)
     and B2 with the image sky (and the sphere winners' masks, `mat_pair`,
@@ -1428,7 +1524,8 @@ def general_launches(scene, cfg, spp, trainable):
     record forward (not on the plain autodiff route); no B3; B4 once a
     sample where tex_data trains and the atlas has texel rows (not on the
     plain autodiff route, whose phases train no texels); the row sums of
-    `rowsum_launches`. Kernels not launched are left out."""
+    `rowsum_launches`; the camera once a sample (`camera_launches`).
+    Kernels not launched are left out."""
     n = spp * cfg.max_bounces
     plain_ad = cfg.custom_vjp == "off"
     texels = "tex_data" in trainable and scene.tex_data.shape[0] > 1
@@ -1438,7 +1535,8 @@ def general_launches(scene, cfg, spp, trainable):
                sorted_fold=spp if texels and not plain_ad else 0,
                traverse=n if scene.mesh_mat.shape[0] > 0 else 0,
                shadow=n if scene.light_pos.shape[0] > 0 else 0,
-               row_sum=rowsum_launches(scene, trainable, spp))
+               row_sum=rowsum_launches(scene, trainable, spp),
+               camera=camera_launches(spp, trainable))
     return {k: v for k, v in out.items() if v}
 
 
@@ -2848,7 +2946,8 @@ def graph_phase(flat_sb, pair_sb, reps=3):
         add(want)
         cache.clear()
     if sorted(total) != sorted(("first_hits", "shade_scatter", "bounce_bwd",
-                                "sorted_fold", "traverse", "shadow")):
+                                "sorted_fold", "traverse", "shadow",
+                                "camera")):
         raise AssertionError(f"graph: replays launched {total}")
 
     # fit on Cornell: compiled against eager, and the compiled resume
@@ -3212,12 +3311,15 @@ def graph_general_phase(flat_sb, rtw_sb, flam_sb, reps=3):
                                rtw_train))
     cache.clear()
     # the occupancy frame: the rays and tables made once, as the CLI does
+    # (so its graph runs no camera kernel)
     rays = cli.benchmark_rays(cam, cfg, W, H, pid)
     tables = integrator.prepare(flat)
+    want = call_launches(flat, cfg, 1)
+    del want["camera"]
     graph_check("cornell_occupancy_frame",
                 lambda: cli.occupancy_frame(flat, cfg, *rays, tables),
                 lambda: cli.occupancy_frame(flat, cfg, *rays, tables),
-                call_launches(flat, cfg, 1), reps=reps, profile="both")
+                want, reps=reps, profile="both")
     cache.clear()
     return replays["rt_weekend_standin_general"]
 
@@ -3960,9 +4062,11 @@ def main(dist_only=False, bench_only=False, graph_only=False):
         raise AssertionError("textured Cornell did not build a pair atlas")
     kernel_phase("cornell", flat_scene, stats, range(BOUNCES))
     kernel_phase("cornell_textured", pair_scene, stats, range(BOUNCES))
-    launches["finish"] = render_phase("cornell", flat_sb, SPP)["finish"]
+    cornell = render_phase("cornell", flat_sb, SPP)
+    launches.update(finish=cornell["finish"], camera=cornell["camera"])
     render_phase("cornell_textured", pair_sb, PAIR_SPP)
     finish_phase(flat_sb, stats)
+    camera_phase(stats)
 
     tf32_phase()
     record_phase(pair_scene, stats)
@@ -4123,6 +4227,16 @@ def main(dist_only=False, bench_only=False, graph_only=False):
                  "replaces": "tracer_torch/render/film.py::to_image (numpy "
                              "on the host; no Pallas kernel)",
                  "launches": launches["finish"], "max_abs_err": rec.err,
+                 "ms": rec.ms, "plain_ms": rec.plain_ms,
+                 "bound_ms": rec.bound_ms, "bound_by": rec.bound_by,
+                 "library_ms": rec.library_ms})
+    # the camera: 850x480 rays, 1 launch a sample of a `render` frame
+    rec = stats["camera"][0]
+    rows.append({"name": "camera", "route": "cuda",
+                 "source": "tracer_torch/kernels/csrc/camera.cu",
+                 "replaces": "tracer_torch/render/renderer.py::camera_batch "
+                             "(its torch chain; no Pallas kernel)",
+                 "launches": launches["camera"], "max_abs_err": rec.err,
                  "ms": rec.ms, "plain_ms": rec.plain_ms,
                  "bound_ms": rec.bound_ms, "bound_by": rec.bound_by,
                  "library_ms": rec.library_ms})

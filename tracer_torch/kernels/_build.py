@@ -101,5 +101,7 @@ def library() -> ctypes.CDLL:
     lib.tt_row_sum.restype = ctypes.c_int
     lib.tt_finish.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.tt_finish.restype = ctypes.c_int
+    lib.tt_camera.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.tt_camera.restype = ctypes.c_int
     _LIB = lib
     return _LIB

@@ -80,7 +80,7 @@
 struct ShadeIO {
   float *ox, *oy, *oz, *dx, *dy, *dz, *thx, *thy, *thz, *ax, *ay, *az;
   unsigned char* active;
-  const int* key;  // uint32 key bits
+  const long long* key;  // uint32 keys in int64 (the low word is read)
   const int* j;
   const float *px, *py, *pz, *nx, *ny, *nz, *u, *v;
   const int *mid, *row, *sub;
@@ -105,6 +105,9 @@ struct ShadeParams {
   // the sphere winners' masks from mat_pair; exact_atlas is refused
   int has_sky, exact_atlas, sphere_uv, sky_w, sky_h, sky_n;
   float eps, n_rem, dark;
+  // >= 0: key holds the sample's keys, and this bounce's are
+  // mix(key, salt) (the bounce index); -1: key holds this bounce's keys
+  int salt;
   // written by the launcher: persistent blocks, tables in shared memory
   int blocks, shared_tables;
 };
@@ -350,7 +353,9 @@ __device__ __forceinline__ void shade_lane(const ShadeIO& io,
   }
 
   // ---- BSDF scatter (Material.cpp:26-60) --------------------------------
-  const uint32_t bk = (uint32_t)io.key[i];
+  const uint32_t bk = p.salt >= 0
+                          ? tt::mix((uint32_t)io.key[i], (uint32_t)p.salt)
+                          : (uint32_t)io.key[i];
   const float ddn = dx * nx + dy * ny + dz * nz;
   float dox, doy, doz;
   if (mtype == GLASS) {

@@ -70,7 +70,7 @@
 // Mirror of _Args in tracer_torch/kernels/shadow.py (same order).
 struct ShadowArgs {
   const float *px, *py, *pz, *tm;
-  const int* key;  // uint32 key bits
+  const long long* key;  // uint32 keys in int64 (the low word is read)
   const unsigned char* live;
   const float *light, *sph, *quad, *mesh;
   const float* nodes_f;
@@ -87,6 +87,9 @@ struct ShadowArgs {
   int L, S, S_real, Q, Q_real, K, ref;
   float eps;         // the scene's candidate cut (t >= eps)
   float offset_eps;  // the shadow ray's origin offset (cfg.epsilon)
+  // >= 0: key holds the sample's keys, and this bounce's are
+  // mix(key, salt) (the bounce index); -1: key holds this bounce's keys
+  int salt;
 };
 
 namespace {
@@ -144,7 +147,9 @@ __device__ __forceinline__ Sample make_sample(const ShadowArgs& a,
                                               const Tables<kShared>& tb,
                                               int i, int l, int k) {
   const float px = a.px[i], py = a.py[i], pz = a.pz[i];
-  const uint32_t key = (uint32_t)a.key[i];
+  const uint32_t key = a.salt >= 0
+                           ? tt::mix((uint32_t)a.key[i], (uint32_t)a.salt)
+                           : (uint32_t)a.key[i];
   const float* lt = tb.light + l * 4;
   const float delta = lt[3];
   const uint32_t skey = tt::mix(tt::mix(key, SHADOW_LIGHT_POS), l);

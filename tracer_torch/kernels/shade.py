@@ -125,17 +125,19 @@ def shade_tables(scene, dark=None):
 def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
                   use_pair=False, last=False, kernels="auto", tables=None,
                   rec_out=False, mesh=None, quad=None, mat_pair=None,
-                  sky_wh=None):
+                  sky_wh=None, salt=None):
     """One bounce's shading and scatter over planar ray state, in place.
 
     state: dict(o, d, time, throughput, active, acc) — planar f32 [N] and
     `active` bool [N]; o, d, throughput, acc and active are updated in
     place (module docstring). bkeys: this bounce's keys (int64 holding
-    uint32). k1: the `first_hits` record (j, tid, mid, p, n, u, v and,
-    with `use_pair`, row, sub from `tex_out >= 1`; the slim record
-    suffices). shadows: [L, N] f32 soft-shadow factors, or None when the
-    scene has no lights. `mesh`: a precomputed `intersect.mesh_tables
-    (scene)` (mesh scenes); `quad`: the first-hit quad table
+    uint32) or, with `salt` (the bounce index), the sample's keys, which
+    the pass salts itself (`rng.salted(keys, salt)`). k1: the
+    `first_hits` record (j, tid, mid, p, n, u, v and, with `use_pair`,
+    row, sub from `tex_out >= 1`; the slim record suffices). shadows:
+    [L, N] f32 soft-shadow factors, or None when the scene has no lights.
+    `mesh`: a precomputed `intersect.mesh_tables(scene)` (mesh scenes);
+    `quad`: the first-hit quad table
     (`intersect.intersect_tables(scene)[1]`). `mat_pair`: with `use_pair`
     on scenes with textured spheres (k1 from `first_hits(sphere_tex=
     ...)`), `mat_pair_table(scene)`. `sky_wh`: an image sky's (W, H) as
@@ -163,7 +165,9 @@ def shade_scatter(scene, cfg, state, bkeys, k1, n_rem: int, shadows=None,
     if kc.use_kernel(kernels, state["d"][0]):
         return _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem,
                                    shadows, use_pair, last, tables, rec_out,
-                                   mesh, quad, mat_pair, sky_wh)
+                                   mesh, quad, mat_pair, sky_wh, salt)
+    if salt is not None:
+        bkeys = rng.salted(bkeys, salt)
     return shade_scatter_plain(scene, cfg, state, bkeys, k1, n_rem,
                                shadows, use_pair, last, tables, rec_out,
                                mesh, quad, mat_pair, sky_wh)
@@ -343,12 +347,13 @@ class _Params(ctypes.Structure):
         "rec_out", "n_meshes", "T", "has_sky", "exact_atlas", "sphere_uv",
         "sky_w", "sky_h", "sky_n")] + [
         (name, ctypes.c_float) for name in ("eps", "n_rem", "dark")] + [
-        (name, ctypes.c_int) for name in ("blocks", "shared_tables")]
+        (name, ctypes.c_int) for name in ("salt", "blocks",
+                                          "shared_tables")]
 
 
 def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                         use_pair, last, tables, rec_out=False, mesh=None,
-                        quad=None, mat_pair=None, sky_wh=None):
+                        quad=None, mat_pair=None, sky_wh=None, salt=None):
     from tracer_torch.kernels import _build
     global LAUNCHES, TABLES, BLOCKS
     mat_tab, light_tab, dark = tables
@@ -362,8 +367,7 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
         for ax_, t in zip("xyz", state[key]):
             setattr(io, pre + ax_, kc.check(f"{key}.{ax_}", t, f32, (N,), dev))
     io.active = kc.check("active", state["active"], torch.bool, (N,), dev)
-    keys32 = rng.as_int32_bits(bkeys)
-    io.key = kc.check("keys", keys32, i32, (N,), dev)
+    io.key = kc.check("keys", bkeys, torch.int64, (N,), dev)
     for name in ("j", "mid", "row", "sub"):
         setattr(io, name, kc.check(name, k1[name], i32, (N,), dev))
     for pre, key in (("p", "p"), ("n", "n")):
@@ -407,7 +411,8 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                   sky_h=sky_wh[1] if has_sky else 0,
                   sky_n=scene.sky_data.shape[0],
                   eps=float(cfg.epsilon),
-                  n_rem=float(n_rem), dark=dark)
+                  n_rem=float(n_rem), dark=dark,
+                  salt=-1 if salt is None else salt)
     if N > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().tt_shade_scatter(

@@ -99,12 +99,13 @@ def shadow_tables(scene):
 
 
 def shadow_factors(scene, cfg, p, time, keys, eps, live=None,
-                   kernels="auto", tables=None, tree=None):
+                   kernels="auto", tables=None, tree=None, salt=None):
     """Soft-shadow factors [L, N] f32 for planar hit points p ([N] f32
-    each), ray times [N] and this bounce's keys [N] (int64 holding uint32);
-    1.0 on lanes with `live` false. `tables`: a precomputed
-    `shadow_tables`; `tree`: the scene's `traverse.traverse_tables` (mesh
-    scenes)."""
+    each), ray times [N] and this bounce's keys [N] (int64 holding uint32)
+    or, with `salt` (the bounce index), the sample's keys, which the pass
+    salts itself (`rng.salted(keys, salt)`); 1.0 on lanes with `live`
+    false. `tables`: a precomputed `shadow_tables`; `tree`: the scene's
+    `traverse.traverse_tables` (mesh scenes)."""
     if tables is None:
         tables = shadow_tables(scene)
     if tree is None and scene.mesh_mat.shape[0] > 0:
@@ -113,7 +114,9 @@ def shadow_factors(scene, cfg, p, time, keys, eps, live=None,
         live = torch.ones_like(p[0], dtype=torch.bool)
     if kc.use_kernel(kernels, p[0]):
         return _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live,
-                                    tables, tree)
+                                    tables, tree, salt)
+    if salt is not None:
+        keys = rng.salted(keys, salt)
     return shadow_factors_plain(scene, cfg, p, time, keys, eps, live,
                                 tables, tree)
 
@@ -224,10 +227,11 @@ class _Args(ctypes.Structure):
         ("L", ctypes.c_int), ("S", ctypes.c_int), ("S_real", ctypes.c_int),
         ("Q", ctypes.c_int), ("Q_real", ctypes.c_int), ("K", ctypes.c_int),
         ("ref", ctypes.c_int), ("eps", ctypes.c_float),
-        ("offset_eps", ctypes.c_float)]
+        ("offset_eps", ctypes.c_float), ("salt", ctypes.c_int)]
 
 
-def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
+def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree,
+                         salt=None):
     from tracer_torch.kernels import _build
     global LAUNCHES, BLOCKS, TABLES
     light, sph, quad, mesh = tables
@@ -245,8 +249,7 @@ def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
     for name, t in zip(("px", "py", "pz"), p):
         setattr(a, name, kc.check(name, t, f32, (N,), dev))
     a.tm = kc.check("time", time, f32, (N,), dev)
-    keys32 = rng.as_int32_bits(keys)
-    a.key = kc.check("keys", keys32, torch.int32, (N,), dev)
+    a.key = kc.check("keys", keys, torch.int64, (N,), dev)
     a.live = kc.check("live", live, torch.bool, (N,), dev)
     a.light = kc.check("light", light, f32, (L, 4), dev)
     a.sph = kc.check("sph", sph, f32, (S, 9), dev)
@@ -267,6 +270,7 @@ def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree):
     a.L, a.S, a.S_real, a.Q, a.Q_real = L, S, S_real, Q, Q_real
     a.K, a.ref = K, int(cfg.compat == "reference")
     a.eps, a.offset_eps = float(eps), float(cfg.epsilon)
+    a.salt = -1 if salt is None else salt
     if N > 0 and L > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().tt_shadow(ctypes.addressof(a), stream)

@@ -99,6 +99,7 @@ from typing import Callable, Optional
 import torch
 
 from tracer_torch.core.spans import span
+from tracer_torch.kernels import camera as kcamera
 from tracer_torch.kernels import fold as kfold
 from tracer_torch.kernels import intersect as kintersect
 from tracer_torch.kernels import rowsum as krowsum
@@ -110,7 +111,7 @@ from tracer_torch.kernels import traverse as ktraverse
 # the modules whose LAUNCHES a replay adds to
 COUNTED = dict(first_hits=kintersect, shade_scatter=kshade,
                bounce_bwd=kbwd, sorted_fold=kfold, traverse=ktraverse,
-               shadow=kshadow, row_sum=krowsum)
+               shadow=kshadow, row_sum=krowsum, camera=kcamera)
 
 
 def launch_counts() -> dict:

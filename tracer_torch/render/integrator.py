@@ -192,14 +192,16 @@ def _sky_wh(scene):
 
 
 def _shadow_factors_all(scene, cfg: RenderConfig, p, time, keys, live,
-                        tables: FrameTables):
+                        tables: FrameTables, salt=None):
     """Per-light soft-shadow factors [L, N] of the hit points p (None
-    without lights)."""
+    without lights); `keys` and `salt` as `shadow.shadow_factors` takes
+    them."""
     if scene.light_pos.shape[0] == 0:
         return None
     return kshadow.shadow_factors(scene, cfg, p, time, keys, cfg.epsilon,
                                   live, kernels=cfg.kernels,
-                                  tables=tables.shadow, tree=tables.tree)
+                                  tables=tables.shadow, tree=tables.tree,
+                                  salt=salt)
 
 
 def _init_state(o, d, time):
@@ -247,7 +249,6 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
                                tables=tables, with_rec=with_rec)
     L = scene.light_pos.shape[0]
     n_rem = cfg.max_bounces - b  # NRemainingBounces at this depth
-    bkeys = rng.salted(keys, b)
     fetch_tex = not (last and L == 0 and not scene.emissive_tex_image)
     use_pair = (fetch_tex and not _no_atlas(scene)
                 and scene.pair_pack.shape[0] > 1)
@@ -264,14 +265,19 @@ def _bounce_core(scene, cfg: RenderConfig, keys, state, b: int,
         kernels=cfg.kernels, tables=tables.intersect, t_mesh=t_raw,
         tri_mesh=tri_raw, mesh=tables.mesh, slim=True,
         sphere_tex=tables.sphere_tex if use_pair else None)
-    shadows = _shadow_factors_all(scene, cfg, k1["p"], state["time"], bkeys,
-                                  active & (k1["j"] >= 0), tables)
+    # B6 and B2 take the sample's keys and salt them by the bounce
+    shadows = None
+    if L > 0:
+        shadows = _shadow_factors_all(scene, cfg, k1["p"], state["time"],
+                                      keys, active & (k1["j"] >= 0), tables,
+                                      salt=b)
     out = kshade.shade_scatter(
-        scene, cfg, state, bkeys, k1, n_rem, shadows=shadows,
+        scene, cfg, state, keys, k1, n_rem, shadows=shadows,
         use_pair=use_pair, last=last, kernels=cfg.kernels,
         tables=tables.shade, rec_out=rec_tex, mesh=tables.mesh,
         quad=tables.intersect[1],
-        mat_pair=tables.mat_pair if use_pair else None, sky_wh=tables.sky)
+        mat_pair=tables.mat_pair if use_pair else None, sky_wh=tables.sky,
+        salt=b)
     if not with_rec:
         return state, None
     j = k1["j"]

@@ -39,12 +39,15 @@ numpy), then `render.to_image` (`film.to_image`).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.core.spans import span
+from tracer_torch.kernels import camera as kcamera
 from tracer_torch.kernels import common as kc
 from tracer_torch.kernels import finish as kfinish
 from tracer_torch.render import graphs, integrator
@@ -52,13 +55,29 @@ from tracer_torch.render.camera import Camera, generate_rays
 from tracer_torch.render.film import TileManifest, to_image
 
 
+def camera_kernel_ok(camera: Camera, pixel_ids, kernels="auto") -> bool:
+    """Whether `camera_batch` takes the camera kernel: the kernels' rule
+    (`kernels/common.py`) takes the pixel ids, and no camera tensor
+    requires grad while grad is enabled (the kernel's rays carry none)."""
+    if not kc.use_kernel(kernels, pixel_ids):
+        return False
+    return not (torch.is_grad_enabled() and any(
+        getattr(camera, f.name).requires_grad
+        for f in dataclasses.fields(camera)))
+
+
 def camera_batch(camera: Camera, width: int, height: int, pixel_ids,
-                 sample_idx, seed):
+                 sample_idx, seed, kernels="auto"):
     """One sample's camera rays for a batch of pixels: pixel jitter and ray
     time from the PCG streams. pixel_ids: [N] int (flat y*width + x);
     `sample_idx` a python int or a 0-d int tensor, `seed` as
     `rng.ray_keys` takes it (an int, or its word in a 0-d tensor).
-    Returns (o, d, time, keys) with o, d planar."""
+    Returns (o, d, time, keys) with o, d planar. On the card one kernel
+    makes them (`kernels/camera.py`, where `camera_kernel_ok`); else the
+    torch chain below, its plain version."""
+    if camera_kernel_ok(camera, pixel_ids, kernels):
+        return kcamera.camera_rays(camera, width, height, pixel_ids,
+                                   sample_idx, seed)
     keys = rng.ray_keys(seed, pixel_ids)
     keys = rng.salted(keys, sample_idx)
     jit_uv = rng.uniform(rng.salted(keys, rng.PIXEL_JITTER), (2,))
@@ -78,7 +97,7 @@ def _render_batch(scene, camera: Camera, cfg: RenderConfig, width: int,
                   height: int, pixel_ids, sample_idx, seed, tables=None):
     """Radiance [N, 3] for one sample of a batch of pixels."""
     o, d, time, keys = camera_batch(camera, width, height, pixel_ids,
-                                    sample_idx, seed)
+                                    sample_idx, seed, cfg.kernels)
     return integrator.trace(scene, cfg, o, d, time, keys, tables=tables)
 
 

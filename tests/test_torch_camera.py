@@ -44,6 +44,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from tests.card import card  # noqa: F401  (the fixture)
 from tracer_torch.core import rng
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.kernels import camera as kcamera
@@ -64,13 +65,6 @@ CSRC = pathlib.Path(kcamera.__file__).resolve().parent / "csrc"
 W, H = 37, 23
 FIELDS = ("position", "quaternion", "fov_deg", "aspect")
 CARD_LIKE = types.SimpleNamespace(is_cuda=True)
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: run on the chip")
-    return torch.device("cuda", 0)
 
 
 def bits(t) -> np.ndarray:
@@ -266,6 +260,7 @@ def chain_rays(cam, w, h, pid, sample, seed):
     return o, d, tm, keys, jit.T
 
 
+@pytest.mark.card
 @pytest.mark.parametrize("w,h", [(850, 480), (W, H)])
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 12_345])
 @pytest.mark.parametrize("sample", [0, 5, "tensor"])
@@ -292,6 +287,7 @@ def test_kernel_is_the_chain_bit_for_bit(card, w, h, seed, sample):
                     np.testing.assert_array_equal(bits(a), bits(b))
 
 
+@pytest.mark.card
 @pytest.mark.parametrize("case", range(8))
 def test_kernel_turns_rays_as_the_chain(card, case):
     # seeded poses whose quaternions, of lengths 0.5-2, are summed
@@ -311,6 +307,7 @@ def test_kernel_turns_rays_as_the_chain(card, case):
         np.testing.assert_array_equal(bits(a), bits(b))
 
 
+@pytest.mark.card
 @pytest.mark.parametrize("b", [0, 3])
 @pytest.mark.parametrize("name", ["cornell_box", "random_spheres"])
 def test_card_salt_equals_presalted_keys(card, name, b):
@@ -319,6 +316,7 @@ def test_card_salt_equals_presalted_keys(card, name, b):
                                  "auto"))
 
 
+@pytest.mark.card
 @pytest.mark.parametrize("name", ["cornell", "flamingo_standin"])
 def test_card_frame_equals_the_chains_frame(card, name, monkeypatch):
     w, h, spp = 160, 90, 3
@@ -341,6 +339,7 @@ def test_card_frame_equals_the_chains_frame(card, name, monkeypatch):
     np.testing.assert_array_equal(bits(got), bits(want))
 
 
+@pytest.mark.card
 def test_card_frame_launches_once_a_sample_a_chunk(card):
     scene = compile_scene(zoo.setup_cornell_box(W / H), device=card)
     cam = default_camera(W / H, device=card)
@@ -371,6 +370,7 @@ class Int64Ops(TorchDispatchMode):
         return out
 
 
+@pytest.mark.card
 def test_captured_sample_has_no_int64_glue(card, monkeypatch):
     scene = compile_scene(zoo.setup_cornell_box(W / H), device=card)
     cam = default_camera(W / H, device=card)

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.card import card  # noqa: F401  (the fixture)
 from tracer_torch.core.config import RenderConfig
 from tracer_torch.dist import multihost, sharding
 from tracer_torch.kernels import finish
@@ -44,13 +45,6 @@ from tracer_torch.testing import finish_film
 
 W, H, SPP = 40, 24, 2
 ULP = 2          # CUDA's powf against numpy's float32 power
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: run on the chip")
-    return torch.device("cuda", 0)
 
 
 def bits(a) -> np.ndarray:
@@ -105,6 +99,7 @@ def test_cpu_render_returns_to_image_bits(cornell_cpu, rays_per_batch):
 
 # --- on the card -------------------------------------------------------------
 
+@pytest.mark.card
 @pytest.mark.parametrize("gamma", [True, False])
 @pytest.mark.parametrize("nsamples", [1, 20])
 def test_kernel_against_to_image(card, gamma, nsamples):
@@ -126,14 +121,13 @@ def test_kernel_against_to_image(card, gamma, nsamples):
 
 
 @pytest.fixture(scope="module")
-def cornell_card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: run on the chip")
-    scene = compile_scene(zoo.setup_cornell_box(W / H), device="cuda")
+def cornell_card(card):
+    scene = compile_scene(zoo.setup_cornell_box(W / H), device=card)
     cfg = RenderConfig(nsamples=SPP, width=W, height=H, max_bounces=2)
-    return scene, default_camera(W / H, device="cuda"), cfg
+    return scene, default_camera(W / H, device=card), cfg
 
 
+@pytest.mark.card
 def test_a_frame_launches_the_finish_once(cornell_card):
     scene, cam, cfg = cornell_card
     mesh = sharding.make_ray_mesh(1, 1)
@@ -149,6 +143,7 @@ def test_a_frame_launches_the_finish_once(cornell_card):
     assert finish.LAUNCHES == before
 
 
+@pytest.mark.card
 def test_card_tiled_equals_direct(cornell_card, tmp_path):
     scene, cam, cfg = cornell_card
     direct = renderer.render(scene, cam, cfg)
@@ -156,6 +151,7 @@ def test_card_tiled_equals_direct(cornell_card, tmp_path):
     np.testing.assert_array_equal(bits(tiled), bits(direct))
 
 
+@pytest.mark.card
 def test_card_frames_are_their_own_arrays(cornell_card):
     scene, cam, cfg = cornell_card
     first = renderer.render(scene, cam, cfg)

@@ -1,7 +1,8 @@
 """The compiled entry points (`tracer_torch/render/graphs.py`) on the CPU.
 
-A CUDA graph is captured and replayed on the card only (`chip_smoke.py`'s
-`[graph]` lines hold the replays bit-equal to the eager bodies there);
+A CUDA graph is captured and replayed on the card only
+(`tests/test_torch_card_routes.py::test_graph_*` holds the replays
+bit-equal to the eager bodies there);
 here the CPU runs what decides whether a capture can work and what the
 cache does around it:
 

@@ -4,8 +4,9 @@ texels), the plain autodiff step (`custom_vjp="off"`), the occupancy frame
 of `benchmark --occupancy` and the sharded frame and step, on the CPU at
 32x18, 3 bounces, 2 spp.
 
-A capture runs on the card only (`chip_smoke.py`'s `[graph]` lines hold
-each replay bit-equal to its eager body there); here the CPU runs what
+A capture runs on the card only
+(`tests/test_torch_card_routes.py::test_graph_general_*` holds each
+replay bit-equal to its eager body there); here the CPU runs what
 decides whether a capture can work:
 
 - **Sync-free bodies.** Each body runs through a stub cache (its key,

@@ -20,9 +20,9 @@ Cornell. "Primary rays" = width*height*spp camera rays; each costs up to
 `max_bounces` scene traversals plus `lights*shadow_rays*max_bounces`
 shadow traversals (`per_primary`), reported as `total_rays_per_s`.
 
-The timed bodies are plain functions, so that tests and `chip_smoke.py`
-call them: `frame_scalar` (the frame's mean radiance, `render_pixels(...)
-/ spp` then `.mean()`), `grad_sum` (every gradient entry of the protocol
+The timed bodies are plain functions, so that tests call them (on the
+card, `tests/test_torch_card_routes.py`): `frame_scalar` (the frame's
+mean radiance, `render_pixels(...) / spp` then `.mean()`), `grad_sum` (every gradient entry of the protocol
 loss summed to one scalar, through `loss.backward()`: the hand-written
 sweep on B3, B4 where the atlas has texels; `protocol_step` gives the
 gradients too), `per_primary`. Their inputs come from `inputs(...)`,
@@ -44,8 +44,9 @@ launches), so the queued wall is the card's time, not the host's enqueue
 section 5). A
 host synchronisation inside the timed body would bound how far the host
 runs ahead of the card; `torch.cuda.set_sync_debug_mode("warn")` counts
-none in a frame or a protocol step, compiled or eager, after the first
-call on a scene (`chip_smoke.py`'s `[bench]` and `[graph]` lines): the
+none in a replayed frame or protocol step and at most one in an eager
+step, after the first call on a scene
+(`tests/test_torch_card_routes.py::test_graph_*`): the
 frame's one read, `dark_sky` for the shade kernel, is memoised per scene
 (`integrator.host_constants`), and the backward sweep takes it from the
 forward.

@@ -70,7 +70,6 @@ GLASS = 1
 LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
 
 TABLES = None  # "shared" or "global": where the last launch's tables sat
-BLOCKS = 0     # persistent blocks of the last launch
 
 # output layout of the kernel: int32 [5, N] (tex_out=2: [7, N]) and
 # float32 [8, N]
@@ -416,7 +415,7 @@ class _Args(ctypes.Structure):
 def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
                      t_mesh=None, tri_mesh=None, mesh=None, sphere_tex=None):
     from tracer_torch.kernels import _build
-    global LAUNCHES, TABLES, BLOCKS
+    global LAUNCHES, TABLES
     sph, quad = tables
     dev = o[0].device
     N = o[0].shape[0]
@@ -459,5 +458,4 @@ def _first_hits_cuda(scene, o, d, time, live, eps, tex_out, tables,
         kc.raise_on_error("first_hits", err)
         LAUNCHES += 1
         TABLES = "shared" if a.shared_tables else "global"
-        BLOCKS = a.blocks
     return _unpack(out_i, out_f)

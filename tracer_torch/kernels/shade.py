@@ -77,7 +77,6 @@ DIFFUSE, GLASS, MIRROR = 0, 1, 2
 MAT_COLS = 20
 LAUNCHES = 0   # launches of the CUDA kernel (not of the plain version)
 TABLES = None  # "shared" or "global": where the last launch's tables sat
-BLOCKS = 0     # persistent blocks of the last launch
 
 
 def shade_mat_table(scene):
@@ -355,7 +354,7 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
                         use_pair, last, tables, rec_out=False, mesh=None,
                         quad=None, mat_pair=None, sky_wh=None, salt=None):
     from tracer_torch.kernels import _build
-    global LAUNCHES, TABLES, BLOCKS
+    global LAUNCHES, TABLES
     mat_tab, light_tab, dark = tables
     d0 = state["d"][0]
     dev, N = d0.device, d0.shape[0]
@@ -420,6 +419,5 @@ def _shade_scatter_cuda(scene, cfg, state, bkeys, k1, n_rem, shadows,
         kc.raise_on_error("shade_scatter", err)
         LAUNCHES += 1
         TABLES = "shared" if prm.shared_tables else "global"
-        BLOCKS = prm.blocks
     res = state["acc"] if last else state
     return (res, rec) if rec_out else res

@@ -36,8 +36,9 @@ What bounds it on an H100: the walks' chains of dependent L2 loads, not
 bytes. A hit point reads 24 B and writes 4 B per light; per light it
 traces K rays, each tested against every sphere and quad (from dynamic
 shared memory, or through L2 when the tables exceed a block's 227 KB:
-`TABLES`) and walked through every mesh's BVH (`chip_smoke.py` counts the
-tests, and the visits and triangle tests of each shadow ray). The meshes'
+`TABLES`) and walked through every mesh's BVH (the plain version counts
+the tests, and the visits and triangle tests of each shadow ray, into
+its `stats`). The meshes'
 node ranges come as a device array (`traverse.mesh_ranges`): any number
 of meshes.
 
@@ -58,7 +59,6 @@ from tracer_torch.kernels import traverse as ktraverse
 
 GLASS = 1
 LAUNCHES = 0   # launches of the CUDA kernel (not of the plain version)
-BLOCKS = 0     # persistent blocks of the last launch (one wave)
 TABLES = None  # "shared" or "global": where the last launch's tables sat
 
 
@@ -233,7 +233,7 @@ class _Args(ctypes.Structure):
 def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree,
                          salt=None):
     from tracer_torch.kernels import _build
-    global LAUNCHES, BLOCKS, TABLES
+    global LAUNCHES, TABLES
     light, sph, quad, mesh = tables
     dev = p[0].device
     N = p[0].shape[0]
@@ -276,6 +276,5 @@ def _shadow_factors_cuda(scene, cfg, p, time, keys, eps, live, tables, tree,
         err = _build.library().tt_shadow(ctypes.addressof(a), stream)
         kc.raise_on_error("shadow", err)
         LAUNCHES += 1
-        BLOCKS = a.blocks
         TABLES = "shared" if a.shared_tables else "global"
     return out

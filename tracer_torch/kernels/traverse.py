@@ -18,8 +18,8 @@ What bounds it on an H100: the longest walks' chains of dependent L2
 loads, not the bytes. A ray reads 28 B and writes 8 B per mesh; the tree
 (53k triangles at leaf width 16: ~7 MB of leaf rows, ~0.4 MB of nodes)
 stays in the 50 MB L2, and every node visit costs a load round, a slab
-test and, at a leaf, one load round per triangle slot. `chip_smoke.py`
-counts visits and tests per ray with the plain version.
+test and, at a leaf, one load round per triangle slot. The plain version
+counts visits and tests per ray into its `stats`.
 
 Semantics (mirrored from the TPU kernel and `bvh_closest_hit`):
 - the slab test is min(best t, tfar) > max(0, tnear) with 1/d hoisted; min
@@ -45,7 +45,6 @@ from tracer_torch.kernels import common as kc
 
 TRI_COLS = 32     # padded per-triangle slot in a leaf row
 LAUNCHES = 0      # launches of the CUDA kernel (not of the plain version)
-BLOCKS = 0        # persistent blocks of the last launch (one wave)
 ROOT_CACHE = 16   # root nodes a block keeps in shared memory (csrc/bvh.cuh)
 _RANGES = {}      # (device, mesh_root, mesh_end) -> mesh_ranges' tensor
 
@@ -203,7 +202,7 @@ def check_items(kernel, n_items):
 
 def _mesh_closest_hits_cuda(scene, o, d, live, tables):
     from tracer_torch.kernels import _build
-    global LAUNCHES, BLOCKS
+    global LAUNCHES
     dev = o[0].device
     N = o[0].shape[0]
     Nm = len(scene.mesh_root)
@@ -230,5 +229,4 @@ def _mesh_closest_hits_cuda(scene, o, d, live, tables):
         err = _build.library().tt_traverse(ctypes.addressof(a), stream)
         kc.raise_on_error("traverse", err)
         LAUNCHES += 1
-        BLOCKS = a.blocks
     return out_t, out_tri

@@ -713,6 +713,40 @@ def test_graph_camera_path(card, scene, fresh_graphs):
     assert captures == 1 and g.runs == 8 * SPP - 1
 
 
+def test_graph_frames_reuse_their_tables(card, scene, fresh_graphs):
+    """`integrator.prepare`'s memo on the card: three graphed Cornell
+    frames, `mat_diffuse` written in place before the third, build the
+    tables 1, 0 and 1 times, each bit-equal to the eager frame of a copy
+    of the scene as it stands (tables built afresh); a graphed flamingo
+    loop reuses its tables from its second frame on."""
+    sc = compile_scene(BUILDERS["cornell"](), device=card)   # written below
+    _, cfg, pid = setup(card, nsamples=4)
+    c0, builds = fresh_graphs.captures, []
+    for k in range(3):
+        if k == 2:
+            sc.mat_diffuse.mul_(0.5)
+        cam = orbit_camera(card, k, 3)
+        n0 = integrator.TABLE_BUILDS
+        got = renderer.render_frame(sc, cam, cfg, W, H, pid, 4, cfg.seed)
+        builds.append(integrator.TABLE_BUILDS - n0)
+        copy = graphs.tree_map(torch.clone, sc)
+        with fresh_graphs.disabled():
+            want = renderer.render_frame(copy, cam, cfg, W, H, pid, 4,
+                                         cfg.seed)
+        assert bit_equal(got, want), k
+    assert builds == [1, 0, 1]
+    assert fresh_graphs.captures - c0 == 1
+    fl = scene("flamingo_standin")
+    cam, cfg, pid = setup(card, nsamples=4)
+    grew = []
+    for k in range(4):
+        n0 = (integrator.TABLE_BUILDS, integrator.TABLE_REUSES)
+        renderer.render_frame(fl, cam, cfg, W, H, pid, 4, k)
+        grew.append((integrator.TABLE_BUILDS - n0[0],
+                     integrator.TABLE_REUSES - n0[1]))
+    assert sum(grew[0]) == 1 and grew[1:] == [(0, 1)] * 3
+
+
 @pytest.mark.parametrize("sweep", ["seed", "first_sample", "spp"])
 def test_graph_sweeps_take_no_capture(card, scene, fresh_graphs, sweep):
     """Seeds, first samples and sample counts replay the one sample

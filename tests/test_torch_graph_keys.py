@@ -21,6 +21,14 @@ reruns the body on the graph's static copies):
   it is another tensor (also one at a freed tensor's address) or was
   written in place; the carry always; no body, copy-in included, reads
   the card, and two scenes taking turns keep their host constants.
+- **The tables' memo** (`integrator.prepare`). An unchanged scene's
+  second `prepare` returns the same tables, which a graphed frame then
+  copies in never again; an edit in place (a float, an index, a mesh or a
+  light input) or by `dataclasses.replace` (a tensor or another field)
+  builds them again, and the next graphed frame is bit-equal to the eager
+  frame of a scene compiled afresh with the edit; the last 8 scenes are
+  kept; no frame writes a table; a training step whose optimizer writes
+  the leaves builds them at every step.
 """
 
 import dataclasses
@@ -50,7 +58,7 @@ from tracer_torch.render import integrator as tintegrator
 from tracer_torch.render import renderer as trenderer
 from tracer_torch.scene.device import compile_scene as tcompile
 from tracer_torch.scenes import zoo as tzoo
-from tracer_torch.testing import rt_weekend_standin
+from tracer_torch.testing import flamingo_standin, rt_weekend_standin
 
 W, H, B = 32, 18, 3
 CFG = TConfig(max_bounces=B)
@@ -281,6 +289,150 @@ def test_host_constants_of_scenes_taking_turns(monkeypatch):
             for s, w in zip(scenes, want):
                 assert tintegrator.host_constants(s) == w
                 tintegrator.prepare(s)
+
+
+def table_counts():
+    return tintegrator.TABLE_BUILDS, tintegrator.TABLE_REUSES
+
+
+def port_cornell():
+    """The Cornell box with a small light under its ceiling, so that its
+    walls' colours reach most pixels at 3 bounces."""
+    sb = tzoo.setup_cornell_box(W / H)
+    sb.add_light((0.0, 1.5, 0.5), radius=0.3, color=(1.0, 1.0, 1.0))
+    return tcompile(sb, device="cpu")
+
+
+def small_flamingo():
+    return tcompile(flamingo_standin(tzoo, n_tris=600), device="cpu")
+
+
+def written(name, op):
+    """The edit that writes the scene's tensor `name` in place by `op`."""
+    def edit(scene):
+        op(getattr(scene, name))
+        return scene
+    return edit
+
+
+EDITS = {   # (scene maker, the edit: the scene after it)
+    "mat_diffuse": (port_cornell, written("mat_diffuse",
+                                          lambda t: t.mul_(0.5))),
+    "quad_mat": (port_cornell, written("quad_mat",
+                                       lambda t: t.copy_(t.roll(1)))),
+    "mesh_verts": (small_flamingo, written("mesh_verts",
+                                           lambda t: t.add_(0.05))),
+    "light_pos": (sky_scene, written("light_pos", lambda t: t.add_(0.3))),
+    "replace_tensor": (port_cornell, lambda s: dataclasses.replace(
+        s, sph_center=s.sph_center + 0.1)),
+    "replace_field": (sky_scene, lambda s: dataclasses.replace(
+        s, sphere_uv_needed=False)),
+}
+
+
+def test_prepare_reuses_an_unchanged_scenes_tables():
+    """A second `prepare` of an unchanged scene returns the same table
+    tensors, and a second graphed frame copies none of them in."""
+    ts = port_cornell()
+    first = tintegrator.prepare(ts)
+    b, r = table_counts()
+    again = tintegrator.prepare(ts)
+    assert table_counts() == (b, r + 1)
+    assert again is first
+    cache = stub()
+    for k in range(2):
+        trenderer.render_frame(ts, port_camera(k), CFG, W, H, pids(), 1, k,
+                               cache=cache)
+        if k == 0:
+            (g,) = cache.graphs()
+            stamps = list(g.stamps)
+    assert g.replays == 1
+    args = trenderer._frame_args(ts, port_camera(1), pids(), 1)
+    unique = graphs.key_of((), args)[1]
+    table_ids = {id(t) for t in graphs.tensors(first)}
+    scene_ids = {id(t) for t in graphs.tensors(ts)}
+    at = [i for i, t in enumerate(unique) if id(t) in table_ids]
+    assert len(at) == len(table_ids) >= 4
+    assert all(g.stamps[i] is stamps[i] for i in at)
+    # the scene's tensors stay too; the camera and pixel ids are new
+    assert all(g.stamps[i] is stamps[i] for i, t in enumerate(unique)
+               if id(t) in scene_ids)
+    assert any(g.stamps[i] is not stamps[i] for i in range(len(unique)))
+
+
+@pytest.mark.parametrize("edit", sorted(EDITS))
+def test_an_edited_scene_builds_its_tables_again(edit):
+    """An edit in place or by `dataclasses.replace` builds the tables
+    again, and the next graphed frame is the eager frame of a scene
+    compiled afresh with the same edit, bit for bit."""
+    make, change = EDITS[edit]
+    scene, cam, cache = make(), port_camera(0), stub()
+    for _ in range(2):
+        before = trenderer.render_frame(scene, cam, CFG, W, H, pids(), 2, 0,
+                                        cache=cache)
+    scene = change(scene)
+    b, r = table_counts()
+    got = trenderer.render_frame(scene, cam, CFG, W, H, pids(), 2, 0,
+                                 cache=cache)
+    assert table_counts() == (b + 1, r)
+    assert torch.equal(got, eager(change(make()), cam, 2, 0))
+    assert not torch.equal(got, before)
+
+
+def test_table_memo_keeps_the_last_eight_scenes():
+    """Two scenes taking turns build their tables once each; a ninth
+    scene evicts the least recently used."""
+    ts = port_cornell()
+    scenes = [dataclasses.replace(ts, mat_diffuse=ts.mat_diffuse.clone())
+              for _ in range(9)]
+    b, r = table_counts()
+    for _ in range(3):
+        for s in scenes[:2]:
+            tintegrator.prepare(s)
+    assert table_counts() == (b + 2, r + 4)
+    for s in scenes[2:]:
+        tintegrator.prepare(s)
+    assert table_counts() == (b + 9, r + 4)
+    tintegrator.prepare(scenes[1])
+    assert table_counts() == (b + 9, r + 5)
+    tintegrator.prepare(scenes[0])
+    assert table_counts() == (b + 10, r + 5)
+
+
+@pytest.mark.parametrize("make", [port_cornell, small_flamingo, sky_scene],
+                         ids=["cornell", "flamingo", "sky"])
+def test_frames_write_no_table(make):
+    """No frame, graphed or eager, writes a table in place: what makes
+    their reuse sound."""
+    scene = make()
+    tables = tintegrator.prepare(scene)
+    versions = [t._version for t in graphs.tensors(tables)]
+    cache = stub()
+    for k in range(2):
+        trenderer.render_frame(scene, port_camera(k), CFG, W, H, pids(), 2,
+                               k, cache=cache)
+    eager(scene, port_camera(0), 2, 0)
+    assert tintegrator.prepare(scene) is tables
+    assert [t._version for t in graphs.tensors(tables)] == versions
+
+
+def test_training_steps_build_their_tables_every_step():
+    """A step whose optimizer writes the leaves in place builds the
+    tables at every step; with no update the next step reuses them."""
+    ts, cam = port_cornell(), port_camera(0)
+    target = torch.zeros(H, W, 3)
+    params = TT.split_params(ts, cam, ["mat_diffuse", "sph_center"])
+    opt = TT._adam_default(1e-2)([params[k] for k in sorted(params)])
+    cache = stub()
+    adam, keep = (TT.make_step(u, CFG, target, W, H, 1, cache=cache)
+                  for u in (opt, NoUpdate()))
+    # the last Adam update is the keeping step's first change
+    for i, (step, grew) in enumerate([(adam, (1, 0))] * 3 + [
+            (keep, (1, 0)), (keep, (0, 1))]):
+        b, r = table_counts()
+        step(params, ts, cam, pids(), i)
+        assert table_counts() == (b + grew[0], r + grew[1]), i
+    assert cache.captures == 1
 
 
 def counting(module, fn):

@@ -121,32 +121,43 @@ class HostConstants(NamedTuple):
     sky_wh: Optional[tuple]
 
 
-# (weak references and versions of the scalars last read, constants) by
-# the id of the dark_sky tensor, for the last _HOST_SCENES scenes: a scene
-# whose scalars were not written since keeps its host constants without a
-# read of the card, also where a few scenes take turns
+# the memos of `host_constants` and `prepare`: (the stamps of the tensors a
+# value was made from, the value) by key, for the last _MEMO_SCENES
+# scenes, least recently used first out; a scene whose tensors were not
+# written since keeps its values, also where a few scenes take turns
 _HOST_MEMO: "collections.OrderedDict" = collections.OrderedDict()
-_HOST_SCENES = 8
+_TABLE_MEMO: "collections.OrderedDict" = collections.OrderedDict()
+_MEMO_SCENES = 8
+TABLE_BUILDS = 0   # `prepare` calls that built the frame's tables
+TABLE_REUSES = 0   # `prepare` calls that returned the tables last built
+
+
+def _memoised(memo, key, ts, make):
+    """(`make()` memoised in `memo` under `key`, whether it was a hit): a
+    hit while each tensor of `ts` is the tensor it was made from (a weak
+    reference, so a freed tensor's id taken again misses) at the version it
+    had then (`_version`, which every in-place op bumps)."""
+    hit = memo.get(key)
+    if hit is not None and all(r() is t and v == t._version
+                               for (r, v), t in zip(hit[0], ts)):
+        memo.move_to_end(key)
+        return hit[1], True
+    stamps = tuple((weakref.ref(t), t._version) for t in ts)
+    out = make()
+    memo[key] = (stamps, out)
+    memo.move_to_end(key)
+    while len(memo) > _MEMO_SCENES:
+        memo.popitem(last=False)
+    return out, False
 
 
 def host_constants(scene) -> HostConstants:
     """The frame's host reads (`HostConstants`), memoised per scene (the
-    last 8): a read of the card happens only for scalars that are new or
-    were written in place since the last read (each tensor's version
-    counter, which every in-place op bumps)."""
+    last 8, by the dark_sky tensor): a read of the card happens only for
+    scalars that are new or were written in place since the last read."""
     ts = (scene.dark_sky, scene.sky_w, scene.sky_h)
-    hit = _HOST_MEMO.get(id(ts[0]))
-    if hit is not None and all(r() is t and v == t._version
-                               for (r, v), t in zip(hit[0], ts)):
-        _HOST_MEMO.move_to_end(id(ts[0]))
-        return hit[1]
-    out = HostConstants(float(scene.dark_sky), _sky_wh(scene))
-    _HOST_MEMO[id(ts[0])] = (tuple((weakref.ref(t), t._version)
-                                   for t in ts), out)
-    _HOST_MEMO.move_to_end(id(ts[0]))
-    while len(_HOST_MEMO) > _HOST_SCENES:
-        _HOST_MEMO.popitem(last=False)
-    return out
+    return _memoised(_HOST_MEMO, id(ts[0]), ts, lambda: HostConstants(
+        float(scene.dark_sky), _sky_wh(scene)))[0]
 
 
 class FrameTables(NamedTuple):
@@ -161,14 +172,41 @@ class FrameTables(NamedTuple):
     sky: Optional[tuple]         # image skies: (W, H) as host ints
 
 
-@torch.no_grad()
 def prepare(scene):
-    """The per-frame scene tables the kernels read (built once a frame or
-    a step): the frame's host reads (`host_constants`, memoised per
-    scene) and the tables built on the scene's device. A compiled entry
-    point builds them from the caller's scene before its graph and passes
-    them in (`render/graphs.py`), so a read of the card happens before a
-    capture, never inside it."""
+    """The per-frame scene tables the kernels read: the frame's host reads
+    (`host_constants`) and the tables built on the scene's device. A
+    compiled entry point builds them from the caller's scene before its
+    graph and passes them in (`render/graphs.py`), so a read of the card
+    happens before a capture, never inside it.
+
+    Memoised per scene (the last 8): the tables are a function of the
+    scene's tensors and fields alone, so while every tensor of the scene
+    is the tensor last built from at the same version and every other
+    field is equal, the call returns the same table tensors (which nothing
+    writes), and a graph's copy-in skips them. An edit in place, a
+    `dataclasses.replace` or a new scene builds them again; so does every
+    training step, whose optimizer writes the leaves in place. Each call
+    adds one to `TABLE_BUILDS` or to `TABLE_REUSES`."""
+    global TABLE_BUILDS, TABLE_REUSES
+    key, ts = [], []
+    for f in dataclasses.fields(scene):
+        x = getattr(scene, f.name)
+        if isinstance(x, torch.Tensor):
+            key.append(id(x))
+            ts.append(x)
+        else:
+            key.append(x)
+    tables, hit = _memoised(_TABLE_MEMO, tuple(key), ts,
+                            lambda: _build_tables(scene))
+    if hit:
+        TABLE_REUSES += 1
+    else:
+        TABLE_BUILDS += 1
+    return tables
+
+
+@torch.no_grad()
+def _build_tables(scene) -> FrameTables:
     host = host_constants(scene)
     meshes = scene.mesh_mat.shape[0] > 0
     uv = scene.sphere_uv_needed and not _no_atlas(scene)
